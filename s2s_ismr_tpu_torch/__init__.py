@@ -1,0 +1,19 @@
+"""s2s_ismr_tpu_torch — the PyTorch/CUDA port of s2s_ismr_tpu for one
+NVIDIA H100.
+
+The JAX package `s2s_ismr_tpu` stays the reference; every module here keeps
+its counterpart's name (`s2s_ismr_tpu/X/y.py` -> `s2s_ismr_tpu_torch/X/y.py`)
+and is held against it by the `tests/test_torch_*.py` parity tests. The
+numpy-only host layer (`timeutils`, `grid`, `field`, `data`, `io`,
+`train.splits`) is shared by import, not copied. This package imports
+`torch` and never `jax`.
+
+Layout (first slice: the NN branch of the hindcast tuning run):
+  ops        masked quantiles, rolling tercile labels, RPS/RPSS
+  kernels    hand-written CUDA kernels (csrc/) with their plain versions
+  models     U-Net with Keras-semantics layers, flax-variable converter
+  train      losses, the training engine, the serial tuning sweep
+  pipelines  tune configs and the NN branch of the tune pipeline
+"""
+
+__version__ = "0.1.0"

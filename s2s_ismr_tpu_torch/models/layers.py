@@ -1,0 +1,172 @@
+"""Keras-semantics building blocks as torch modules (port of
+s2s_ismr_tpu/models/layers.py).
+
+  * Conv2D: glorot-uniform kernel, zero bias, channels-last, 'same' pad
+  * Conv2DTranspose: gradient-of-conv (TF/Keras) SAME placement
+  * BatchNorm: momentum 0.99, epsilon 1e-3, biased batch variance, optional
+    per-sample weights for padded batches
+  * FusedConv3x3: conv3x3 + bias + ELU through the hand-written kernel
+
+Activations are NHWC and conv kernels HWIO (kh, kw, C, O), as in JAX, so
+parameters convert from flax by renaming only (models/convert.py). Every
+parameter is drawn from an explicit torch.Generator.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import conv3x3_bias_act
+
+
+def glorot_uniform_(t, generator=None):
+    """Keras glorot-uniform for an HWIO kernel: U(-l, l), l = sqrt(6 /
+    (fan_in + fan_out)) with fans counted over the receptive field."""
+    rf = math.prod(t.shape[:-2])
+    limit = math.sqrt(6.0 / (rf * t.shape[-2] + rf * t.shape[-1]))
+    with torch.no_grad():
+        return t.uniform_(-limit, limit, generator=generator)
+
+
+def _hwio(shape, generator, device):
+    t = torch.empty(shape, dtype=torch.float32)
+    return nn.Parameter(glorot_uniform_(t, generator).to(device))
+
+
+class KernelBias(nn.Module):
+    """The `kernel`/`bias` pair of a conv, in flax's nested `conv` scope."""
+
+    def __init__(self, shape, generator=None, device=None):
+        super().__init__()
+        self.kernel = _hwio(shape, generator, device)
+        self.bias = nn.Parameter(torch.zeros(shape[-1], device=device))
+
+
+class Conv2D(nn.Module):
+    """Keras-default 2D conv, stride 1, SAME padding; x NHWC."""
+
+    def __init__(self, in_features, features, kernel_size=(3, 3),
+                 generator=None, device=None):
+        super().__init__()
+        self.conv = KernelBias((*kernel_size, in_features, features),
+                               generator, device)
+
+    def forward(self, x):
+        y = F.conv2d(x.permute(0, 3, 1, 2),
+                     self.conv.kernel.permute(3, 2, 0, 1), self.conv.bias,
+                     padding="same")
+        return y.permute(0, 2, 3, 1)
+
+
+class Conv2DTranspose(nn.Module):
+    """Transposed conv with TF/Keras gradient-of-conv SAME semantics.
+
+    The kernel is stored HWIO of the *forward* conv (kh, kw, features,
+    in_features), as in JAX, so its adjoint maps in_features -> features.
+    torch's conv_transpose2d with padding (k - s) // 2 places the output as
+    TF does once cropped to s * H (without the crop, odd k gives s*H + 1).
+    """
+
+    def __init__(self, in_features, features, kernel_size=(3, 3),
+                 strides=(2, 2), generator=None, device=None):
+        super().__init__()
+        if any(k < s for k, s in zip(kernel_size, strides)):
+            raise ValueError(f"kernel {kernel_size} smaller than stride "
+                             f"{strides}")
+        self.strides = tuple(strides)
+        self.padding = tuple((k - s) // 2
+                             for k, s in zip(kernel_size, strides))
+        self.kernel = _hwio((*kernel_size, features, in_features), generator,
+                            device)
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x):
+        n, h, w, _ = x.shape
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
+                               self.kernel.permute(3, 2, 0, 1),
+                               stride=self.strides, padding=self.padding)
+        y = y[:, :, :self.strides[0] * h, :self.strides[1] * w]
+        return y.permute(0, 2, 3, 1) + self.bias
+
+
+class BatchNorm(nn.Module):
+    """Keras-default BatchNormalization with optional per-sample weights.
+
+    Not nn.BatchNorm2d: the statistics are the biased variance, the running
+    update is ra = m * ra + (1 - m) * stat with m = 0.99 (the opposite of
+    torch's `momentum` convention), eps is 1e-3, the statistics are
+    weighted by sample_weight (N,) (0 marks a padded sample), and the
+    running averages are left as they are when the weights sum to 0. In
+    train mode the running buffers are updated in place.
+    """
+
+    momentum = 0.99
+    epsilon = 1e-3
+
+    def __init__(self, features, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("mean", torch.zeros(features, device=device))
+        self.register_buffer("var", torch.ones(features, device=device))
+
+    def forward(self, x, train: bool, sample_weight=None):
+        if train:
+            if sample_weight is None:
+                sample_weight = x.new_ones(x.shape[0])
+            axes = tuple(range(x.ndim - 1))
+            w = sample_weight.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
+            per_sample = x.numel() // x.shape[0] // x.shape[-1]
+            tot = torch.clamp(w.sum() * per_sample, min=1.0)
+            mean = (x * w).sum(axes) / tot
+            var = (w * (x - mean) ** 2).sum(axes) / tot
+            with torch.no_grad():
+                m, has_data = self.momentum, w.sum() > 0
+                self.mean.copy_(torch.where(
+                    has_data, m * self.mean + (1 - m) * mean, self.mean))
+                self.var.copy_(torch.where(
+                    has_data, m * self.var + (1 - m) * var, self.var))
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.epsilon)
+        return (x - mean) * inv * self.scale + self.bias
+
+
+class FusedConv3x3(nn.Module):
+    """conv3x3(SAME) + bias + ELU through the hand-written kernel
+    (kernels/conv.py); the counterpart of JAX's PallasConv3x3. Its
+    parameters are Conv2D's (`conv.kernel`, `conv.bias`), so checkpoints
+    interchange between the 'kernel' and 'torch' backends."""
+
+    def __init__(self, in_features, features, generator=None, device=None):
+        super().__init__()
+        self.conv = KernelBias((3, 3, in_features, features), generator,
+                               device)
+
+    def forward(self, x):
+        return conv3x3_bias_act(x, self.conv.kernel, self.conv.bias, "elu")
+
+
+def _even(x):
+    return x[:, :x.shape[1] // 2 * 2, :x.shape[2] // 2 * 2]
+
+
+def avg_pool2(x):
+    """AveragePooling2D((2,2)) valid, stride 2, NHWC."""
+    x = _even(x)
+    n, h, w, c = x.shape
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).mean((2, 4))
+
+
+def max_pool2(x):
+    x = _even(x)
+    n, h, w, c = x.shape
+    return x.reshape(n, h // 2, 2, w // 2, 2, c).amax((2, 4))
+
+
+def elu(x):
+    return F.elu(x)
