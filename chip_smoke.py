@@ -12,15 +12,26 @@ line is printed:
      tune_ECMWF_com U-Nets (filters 2 and 3, n_blocks 3, 32x32, batch 16),
      both acts, forward and the backward's dx / dw / db, rtol 1e-4 /
      atol 1e-5 (f32, sum order only), and at a few edge shapes; then the
-     forward time of kernel and plain (float32) at each slice shape;
+     time of kernel and plain (float32) at each slice shape, for the
+     forward and for the backward's dx;
   4. main path: the NN branch of tune_ECMWF_com (fast variant: 2 folds,
      2 trials, up to 6 epochs) on the synthetic 32x32 grid, T = 349; checks
      finite val losses and RPSS, and that the kernel was launched exactly as
      often as the executed steps imply; checks the kernel's forward at the
      path's other batch sizes (val rows, T); writes and reads back the test
      RPSS map as netcdf;
-  5. the kernels JSON line, the card line, then the result line
-     {"ok": true, "device": {...}}.
+  5. main path of the CLI: `run.main(["tune_ECMWF_com", "--synthetic",
+     "--fast", "--out", <tmp>])` in-process on cuda (data, ELR, NN, skill
+     mask, outputs); checks the exit code, the outputs tree file by file,
+     ELR and U-Net test RPSS finite on land in every fold, the launch count
+     against the executed steps, and that each fold's winner reloaded from
+     disk reproduces the sweep's predictions bit for bit;
+  6. the ELR branch of the full tune_ECMWF_com and tune_2MME (10 folds) on
+     cuda and on the CPU: NaN pattern identical, probabilities within 1e-4,
+     test-RPSS means within 1e-5 (the TPU v5e means of
+     expected/suite_rpss_v5e.json are printed beside, not compared);
+  7. the kernels JSON line (launches summed over phases 4 and 5), the card
+     line, then the result line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -167,10 +178,13 @@ def kernel_vs_plain(torch, conv, shapes, backward=True,
 
 
 def kernel_times(torch, conv, shapes):
-    """Forward (ELU) time per call of kernel and plain at each shape;
-    returns the device times summed over the shapes (ms)."""
+    """Time per call of kernel and plain at each shape, for the forward
+    (ELU, bias) and for the backward's dx (the conv of the upstream
+    gradient (N, H, W, O) with the rotated, transposed taps (3, 3, O, C),
+    no bias, no act). Returns {'fwd': (kernel ms, plain ms), 'dx': (...)},
+    the device times summed over the shapes."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    ms, plain_ms = 0.0, 0.0
+    sums = {"fwd": [0.0, 0.0], "dx": [0.0, 0.0]}
 
     def fmt(v):
         return "n/a" if v is None else f"{v * 1e3:.2f} us"
@@ -178,15 +192,21 @@ def kernel_times(torch, conv, shapes):
         x = torch.randn(n, h, w, c, device="cuda", generator=gen)
         k = torch.randn(3, 3, c, o, device="cuda", generator=gen)
         b = torch.randn(o, device="cuda", generator=gen)
-        with torch.no_grad():
-            t_k = timed(torch, lambda: conv.conv3x3_bias_act(x, k, b))
-            t_p = timed(torch, lambda: conv.conv3x3_bias_act_plain(x, k, b))
-        ms += t_k[1] if t_k[1] is not None else t_k[0]
-        plain_ms += t_p[1] if t_p[1] is not None else t_p[0]
-        print(f"  {str((n, h, w, c, o)):<28} forward (elu) per call: kernel "
-              f"{t_k[0] * 1e3:.1f} us (device {fmt(t_k[1])})  plain "
-              f"{t_p[0] * 1e3:.1f} us (device {fmt(t_p[1])})")
-    return ms, plain_ms
+        g = torch.randn(n, h, w, o, device="cuda", generator=gen)
+        k_adj = k.flip((0, 1)).transpose(2, 3).contiguous()
+        calls = {"fwd": (x, k, b, "elu"), "dx": (g, k_adj, None, "none")}
+        parts = []
+        for name, args in calls.items():
+            with torch.no_grad():
+                t_k = timed(torch, lambda: conv.conv3x3_bias_act(*args))
+                t_p = timed(torch, lambda: conv.conv3x3_bias_act_plain(*args))
+            sums[name][0] += t_k[1] if t_k[1] is not None else t_k[0]
+            sums[name][1] += t_p[1] if t_p[1] is not None else t_p[0]
+            parts.append(f"{name}: kernel {t_k[0] * 1e3:.1f} us (device "
+                         f"{fmt(t_k[1])}) plain {t_p[0] * 1e3:.1f} us "
+                         f"(device {fmt(t_p[1])})")
+        print(f"  {str((n, h, w, c, o)):<22} per call  " + "   ".join(parts))
+    return {k: tuple(v) for k, v in sums.items()}
 
 
 def main_path(torch, conv, card, unet_mods):
@@ -257,6 +277,153 @@ def main_path(torch, conv, card, unet_mods):
     return launches, max_abs
 
 
+def pipeline_path(torch, conv, card):
+    """The CLI's whole tune run in-process on cuda; returns the kernel
+    launches of that run."""
+    import numpy as np
+    from s2s_ismr_tpu.io import read_netcdf
+    from s2s_ismr_tpu_torch import run
+    from s2s_ismr_tpu_torch.pipelines import tune
+    from s2s_ismr_tpu_torch.train import checkpoint
+    from s2s_ismr_tpu_torch.train.engine import predict
+
+    outs = []
+    real = tune.run_pipeline
+
+    def recording(*args, **kw):         # keeps the run's in-memory result
+        outs.append(real(*args, **kw))
+        return outs[-1]
+
+    argv = ["tune_ECMWF_com", "--synthetic", "--fast"]
+    with tempfile.TemporaryDirectory() as d:
+        tune.run_pipeline = recording
+        try:
+            conv.LAUNCHES = 0
+            t0 = time.perf_counter()
+            rc = run.main(argv + ["--out", d])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = conv.LAUNCHES
+        finally:
+            tune.run_pipeline = real
+        check(rc == 0 and len(outs) == 1, f"run.main({argv}) returned {rc}")
+        out = outs[0]
+        cfg, wk = out.config, out.config.week
+        odir = os.path.join(d, "outputs", cfg.out_dir,
+                            f"{cfg.result_name}_{cfg.obs}")
+        mdir = os.path.join(d, "models", cfg.out_dir, f"ECMWF_{cfg.obs}", wk)
+        n_folds = out.nn.masks.n_folds
+        want = ([os.path.join(odir, f"ELR_rpss_{t}_{wk}.nc")
+                 for t in ("train", "test")]
+                + [os.path.join(odir, f"unet_rpss_{t}_{wk}.nc")
+                   for t in ("train", "val", "test")]
+                + [os.path.join(odir, f"{s}_{wk}.json")
+                   for s in ("best_hparams", "profile")]
+                + [os.path.join(mdir, f"winners_{wk}.json")]
+                + [os.path.join(mdir, f"best_model_unet_{i}_tuned.pt")
+                   for i in range(n_folds)])
+        missing = [p for p in want if not os.path.isfile(p)]
+        check(not missing, f"missing outputs {missing}")
+        found = sorted(os.path.join(r, f) for r, _, fs in os.walk(d)
+                       for f in fs)
+        check(found == sorted(want), f"unexpected outputs "
+              f"{sorted(set(found) - set(want))}")
+        print(f"  outputs: {len(found)} files, as the JAX CLI writes them")
+
+        bundle = tune.load_bundles(cfg)["ECMWF"]
+        land = bundle.valid_pixels()
+        for tag, fld in (("ELR", out.elr.rpss_test),
+                         ("unet", out.nn.rpss_test)):
+            back = read_netcdf(os.path.join(odir, f"{tag}_rpss_test_{wk}.nc"))
+            check(np.array_equal(back.values, fld.values, equal_nan=True),
+                  f"{tag} test RPSS netcdf differs from the run's map")
+            check(back.values.shape == (n_folds, 32, 32)
+                  and np.isfinite(back.values[:, land]).all(),
+                  f"{tag} test RPSS not finite on land in every fold")
+            print(f"  {tag} test RPSS on land per fold "
+                  f"{back.values[:, land].mean(1).tolist()}")
+
+        with open(os.path.join(odir, f"profile_{wk}.json")) as fh:
+            prof = json.load(fh)
+        sw = out.nn.sweeps["ECMWF"]
+        steps, epochs = sw.train_steps, sw.epochs_run
+        check(prof["counters"] == {"train_steps": steps,
+                                   "epochs_run": epochs},
+              f"profile counters {prof['counters']}")
+        n_conv = 4 * max(cfg.tuning.n_blocks) + 2
+        expected = steps * (2 * n_conv - 1) + epochs * n_conv \
+            + n_folds * n_conv
+        print(f"  kernel launches {launches}, expected {expected} ({steps} "
+              f"steps, {epochs} epochs, {n_folds} winner forwards)")
+        check(launches == expected, "launch count does not match the steps")
+
+        # replay: each fold's winner from disk, the sweep's shapes (all T)
+        x = torch.as_tensor(bundle.fillna(0.0).predictor_images("mean"),
+                            device="cuda")
+        for f in range(n_folds):
+            model, _ = checkpoint.load_winner(mdir, wk, f, device="cuda")
+            got = predict(model, None, x)
+            sweep_preds = out.nn.predictions[f]
+            if not torch.equal(got, sweep_preds):
+                diff = float((got - sweep_preds).abs().max())
+                again = torch.equal(predict(model, None, x), got)
+                raise SmokeFailure(
+                    f"fold {f}: reloaded winner differs from the sweep's "
+                    f"predictions, max abs diff {diff:.3e} (a second "
+                    f"forward of the reloaded model is "
+                    f"{'equal to' if again else 'different from'} its "
+                    f"first)")
+        print(f"  {n_folds} winners reloaded from disk: predictions "
+              f"bit-equal to the sweep's")
+    st = prof["stages_s"]
+    print(f"  pipeline wall {seconds:.2f} s (stages: data {st['data']} s, "
+          f"ELR {st['elr']} s, NN {st['nn']} s; {steps} steps) on {card}")
+    return launches
+
+
+def elr_cuda_vs_cpu(torch):
+    """The ELR branch of the full tune_ECMWF_com and tune_2MME configs
+    (10 folds) on cuda and on the CPU in this process."""
+    import numpy as np
+    from s2s_ismr_tpu_torch.pipelines import get_config
+    from s2s_ismr_tpu_torch.pipelines.tune import load_bundles, run_elr_branch
+    v5e = {}
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "expected", "suite_rpss_v5e.json")
+    if os.path.exists(path):
+        with open(path) as fh:
+            v5e = json.load(fh)["configs"]
+    for name in ("tune_ECMWF_com", "tune_2MME"):
+        cfg = get_config(name)
+        bundles = load_bundles(cfg)
+        res, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[dev] = run_elr_branch(cfg, bundles, log=lambda s: None,
+                                      device=dev)
+            secs[dev] = time.perf_counter() - t0
+        g, c = res["cuda"], res["cpu"]
+        pg, pc = g.test_probs.cpu().numpy(), c.test_probs.numpy()
+        nan_g, nan_c = np.isnan(pg).any(-1), np.isnan(pc).any(-1)
+        flipped = np.argwhere((nan_g != nan_c).any(1))     # (fold, y, x)
+        check(len(flipped) == 0, f"{name}: NaN pattern differs at (fold, y, "
+              f"x) {flipped[:20].tolist()}")
+        dp = float(np.nanmax(np.abs(pg - pc)))
+        n_lab = int((~((g.labels == c.labels)
+                       | (np.isnan(g.labels) & np.isnan(c.labels)))).sum())
+        means = {d: float(np.nanmean(r.rpss_test.values))
+                 for d, r in res.items()}
+        dm = abs(means["cuda"] - means["cpu"])
+        print(f"  {name} ({pg.shape[0]} folds, {pg.shape[2]}x{pg.shape[3]}):"
+              f" cuda {secs['cuda']:.2f} s, cpu {secs['cpu']:.2f} s; labels "
+              f"differing {n_lab}; max prob diff {dp:.3e}; test RPSS mean "
+              f"cuda {means['cuda']!r} cpu {means['cpu']!r} (diff {dm:.3e}); "
+              f"TPU v5e value, for information: "
+              f"{v5e.get(name, {}).get('elr_rpss_test_mean')}")
+        check(dp <= 1e-4, f"{name}: probabilities differ by {dp:.3e} > 1e-4")
+        check(dm <= 1e-5, f"{name}: test RPSS means differ by {dm:.3e}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -270,12 +437,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        print("[1/4] device")
+        print("[1/6] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/4] build")
+        print("[2/6] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -284,7 +451,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-        print("[3/4] kernel vs plain (TF32 off), batch 16")
+        print("[3/6] kernel vs plain (TF32 off), batch 16")
         unet_mods = (UNet, UNetConfig, FusedConv3x3)
         shapes = []
         for f in (2, 3):
@@ -293,14 +460,24 @@ def main():
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  edge shapes")
         max_abs = max(max_abs, kernel_vs_plain(torch, conv, EDGE_SHAPES))
-        ms, plain_ms = kernel_times(torch, conv, shapes)
-        print(f"  {len(shapes)} shapes: forward device time summed over "
-              f"the shapes, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-              f"max abs err {max_abs:.3e}")
+        times = kernel_times(torch, conv, shapes)
+        ms, plain_ms = times["fwd"]
+        print(f"  {len(shapes)} shapes, device time summed over the shapes: "
+              f"forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; dx "
+              f"kernel {times['dx'][0]:.4f} ms, plain {times['dx'][1]:.4f} "
+              f"ms; max abs err {max_abs:.3e}")
 
-        print("[4/4] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[4/6] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card, unet_mods)
         max_abs = max(max_abs, main_abs)
+
+        print("[5/6] main path: `python -m s2s_ismr_tpu_torch.run "
+              "tune_ECMWF_com --synthetic --fast` in-process on cuda")
+        launches += pipeline_path(torch, conv, card)
+
+        print("[6/6] ELR branch of the full tune_ECMWF_com and tune_2MME "
+              "(10 folds), cuda vs CPU")
+        elr_cuda_vs_cpu(torch)
         check("jax" not in sys.modules, "jax was imported")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -8,12 +8,16 @@ numpy-only host layer (`timeutils`, `grid`, `field`, `data`, `io`,
 `train.splits`) is shared by import, not copied. This package imports
 `torch` and never `jax`.
 
-Layout (first slice: the NN branch of the hindcast tuning run):
-  ops        masked quantiles, rolling tercile labels, RPS/RPSS
+Layout (the hindcast tuning run, U-Net / tune / proba / mean predictor):
+  ops        masked quantiles, rolling tercile labels, RPS/RPSS, the ELR
+             baseline (pixel-parallel IRLS) and the MME blend
   kernels    hand-written CUDA kernels (csrc/) with their plain versions
   models     U-Net with Keras-semantics layers, flax-variable converter
-  train      losses, the training engine, the serial tuning sweep
-  pipelines  tune configs and the NN branch of the tune pipeline
+  train      losses, the training engine, the serial tuning sweep, winner
+             checkpoints
+  pipelines  tune configs and the tune pipeline (ELR and NN branches,
+             skill mask, outputs tree)
+  run        the CLI: `python -m s2s_ismr_tpu_torch.run <config>`
 """
 
 __version__ = "0.1.0"

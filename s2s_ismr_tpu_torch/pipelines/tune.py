@@ -1,20 +1,24 @@
-"""The tune pipeline's NN branch (port of s2s_ismr_tpu/pipelines/tune.py).
+"""The tune pipeline runner (port of s2s_ismr_tpu/pipelines/tune.py):
+one call = one reference tune_*.py script.
 
-Reference flow of the NN branch (tune_ECMWF_com.py): year-bootstrap
-splits, per-fold rolling tercile labels fit on the fold's train years,
-the grid-search tuning sweep, then RPSS of the fold winners against the
-constant-1/3 climatology, per fold and split.
+Reference flow (tune_ECMWF_com.py:22-186): data fetch -> ELR branch
+(year-bootstrap splits, per-pixel GLM, RPSS netcdfs) -> NN branch (splits,
+grid-search tuning, RPSS netcdfs) -> skill mask -> checkpoints. MME configs
+blend per-model tercile probabilities and renormalize (training.py:344-350,
+622-626).
 
-This slice covers the U-Net / `tune` / `proba` / `mean`-predictor /
-single-model path. The ELR branch and `run_pipeline` come with the next
-slice; the other branches raise NotImplementedError naming their ROADMAP
-item.
+Every entry point takes `device=`; tensors live there from labeling to
+RPSS, and the host moves data in and writes the outputs tree of the JAX
+CLI. The U-Net / `tune` / `proba` / `mean`-predictor path is ported; the
+other branches raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Dict
 
 import numpy as np
@@ -24,16 +28,22 @@ from s2s_ismr_tpu import timeutils
 from s2s_ismr_tpu.data.bundle import DataBundle
 from s2s_ismr_tpu.field import Field
 from s2s_ismr_tpu.grid import check_divisible
+from s2s_ismr_tpu.io import write_netcdf
+from s2s_ismr_tpu.profiling import StageTimer
 from s2s_ismr_tpu.train import splits
 
+from ..ops import elr as elr_ops
 from ..ops import metrics, terciles
+from ..train import checkpoint
 from ..train.sweep import SweepResult, TuningGrid, run_unet_sweep
 from .configs import PipelineConfig
 
 _LATER = {
-    "elr": "the ELR branch and run_pipeline (ROADMAP queue A items 10-11)",
-    "flags": "the remaining flag surface (ROADMAP queue A item 13)",
-    "mme": "MME blending, with the ELR slice (ROADMAP queue A items 10-11)",
+    "flags": "the cnn/mlp models and the remaining flag surface (ROADMAP "
+             "queue A item 13)",
+    "plots": "the reporting slice (ROADMAP queue A item 15)",
+    "profile": "the torch.profiler port of profiling.py (ROADMAP queue A "
+               "item 16)",
 }
 
 
@@ -44,25 +54,52 @@ def _later(what, key):
 
 # ----------------------------------------------------------------- data load
 def load_bundles(cfg: PipelineConfig, source="synthetic", seed=0,
-                 synthetic_step=None) -> Dict[str, DataBundle]:
-    """One DataBundle per model from the synthetic generator."""
-    if source != "synthetic":
-        raise _later(f"source={source!r}", "elr")
-    from s2s_ismr_tpu.data import synthetic
-    step = synthetic_step or (cfg.regrid or 1.0)
-    # native-grid configs (regrid=None) carry explicit point counts; an
-    # explicit step overrides them (smoke runs shrink the grid)
-    gshape = None if synthetic_step else cfg.synthetic_grid
-    if cfg.is_mme:
-        xs, _ = synthetic.synthetic_ensemble(
-            models=cfg.models, seed=seed, years=cfg.years,
-            season=cfg.season, domain=cfg.domain, step=step,
-            lead=cfg.lead(cfg.models[0]), grid_shape=gshape)
-        return xs
-    return {cfg.models[0]: synthetic.synthetic_hindcast(
-        model=cfg.models[0], obs=cfg.obs, years=cfg.years,
-        season=cfg.season, domain=cfg.domain, step=step, seed=seed,
-        lead=cfg.lead(), grid_shape=gshape)}
+                 synthetic_step=None, download=True) -> Dict[str, DataBundle]:
+    """One DataBundle per model, from the synthetic generator or the IRIDL
+    gateway (numpy host code shared with the JAX package)."""
+    if source == "synthetic":
+        from s2s_ismr_tpu.data import synthetic
+        step = synthetic_step or (cfg.regrid or 1.0)
+        # native-grid configs (regrid=None) carry explicit point counts; an
+        # explicit step overrides them (smoke runs shrink the grid)
+        gshape = None if synthetic_step else cfg.synthetic_grid
+        if cfg.is_mme:
+            xs, _ = synthetic.synthetic_ensemble(
+                models=cfg.models, seed=seed, years=cfg.years,
+                season=cfg.season, domain=cfg.domain, step=step,
+                lead=cfg.lead(cfg.models[0]), grid_shape=gshape)
+            return xs
+        return {cfg.models[0]: synthetic.synthetic_hindcast(
+            model=cfg.models[0], obs=cfg.obs, years=cfg.years,
+            season=cfg.season, domain=cfg.domain, step=step, seed=seed,
+            lead=cfg.lead(), grid_shape=gshape)}
+    if source == "iridl":
+        from s2s_ismr_tpu.data import gateway
+        out = {}
+        for m in cfg.models:
+            x, y = gateway.get_data(
+                years=cfg.years, download=download, week=cfg.week, model=m,
+                obs=cfg.obs, domain=cfg.domain.as_tuple(), season=cfg.season,
+                regrid=cfg.regrid, custom_lead=cfg.lead(m))
+            out[m] = gateway.to_bundle(x, y, name=f"{m}_{cfg.obs}")
+        if cfg.is_mme:
+            out = _align_mme(out)
+        return out
+    raise ValueError(f"unknown source {source!r}")
+
+
+def _align_mme(bundles: Dict[str, DataBundle]) -> Dict[str, DataBundle]:
+    """T-midpoint alignment across models (tune_MME.py:66-81)."""
+    names = list(bundles)
+    t1 = bundles[names[0]].t
+    t2 = bundles[names[1]].t
+    mid = t1 + (t2 - t1) / 2
+    out = {}
+    for n, b in bundles.items():
+        if len(b.t) != len(mid):
+            raise ValueError(f"MME model {n} time axis length mismatch")
+        out[n] = replace(b, t=mid)
+    return out
 
 
 def _apply_pad(cfg: PipelineConfig, b: DataBundle) -> DataBundle:
@@ -77,13 +114,79 @@ def _apply_pad(cfg: PipelineConfig, b: DataBundle) -> DataBundle:
     return replace(b, x=x, y=y, lats=lats)
 
 
+def _rpss_fields(climo, preds, labels, coords):
+    """RPSS Field (bootstrap, Y, X) of all folds for one mask set."""
+    def fld(masks):
+        r = metrics.rpss_folds(climo, preds, labels, masks)
+        return Field(r.cpu().numpy(), ("bootstrap", "Y", "X"), coords, "rpss")
+    return fld
+
+
+# -------------------------------------------------------------- ELR branch
+@dataclass
+class ElrResult:
+    rpss_train: Field
+    rpss_test: Field
+    test_probs: torch.Tensor        # (F, T, Y, X, 3), on the branch's device
+    labels: np.ndarray              # (F, T, Y, X) degenerate-masked labels
+    masks: splits.FoldMasks
+
+
+def _elr_fit_folds(y, weeks, train_masks, wm):
+    """Per fold: rolling tercile edges fit on the fold's train years, the
+    cumulative ELR targets and the degenerate-masked labels. Folds run one
+    after another: one fold's masked sort is (53, T, P), and all folds at
+    once would be several GB on the 64x64 configs.
+    Returns targets (F, 2, T, *S) and labels (F, T, *S)."""
+    targets, labels = [], []
+    for pm in train_masks:
+        e, p = terciles.rolling_edges(y, weeks, pm, wm)
+        targets.append(terciles.elr_targets(y, weeks, e, p))
+        labels.append(terciles.label_terciles(y, weeks, e, p, True))
+    return torch.stack(targets), torch.stack(labels)
+
+
+def run_elr_branch(cfg: PipelineConfig, bundles, log=print,
+                   device="cpu") -> ElrResult:
+    """The ELR baseline of a tune run on `device`: year-bootstrap splits,
+    per-fold labels, the pixel-parallel GLM of every model (blended for
+    MME), and RPSS maps (train / test) per fold."""
+    names = list(bundles)
+    first = bundles[names[0]]
+    y_shared = np.mean(np.stack([bundles[n].y for n in names]), axis=0) \
+        if cfg.is_mme else first.y
+    fm = splits.bootstrap_masks_elr(first.years, cfg.n_bootstraps,
+                                    frac_test=cfg.elr_frac_test)
+    wm = timeutils.week_window_matrix(1)
+    y_dev = torch.as_tensor(y_shared, device=device)
+    targets, labels = _elr_fit_folds(y_dev, first.weeks, fm.train, wm)
+
+    per_model_probs = []
+    for n in names:
+        xm = torch.as_tensor(bundles[n].ensemble_mean(), device=device)
+        probs = elr_ops.elr_folds(xm, targets, fm.train, fm.test, y_dev)
+        per_model_probs.append(probs)
+        log(f"[elr] model {n}: fitted {tuple(probs.shape)}")
+    probs = (elr_ops.blend_probabilities(per_model_probs) if cfg.is_mme
+             else per_model_probs[0])
+
+    # climo reference from the last-iterated model's predictor, matching
+    # the reference's loop-variable quirk (training.py:636-640)
+    climo = metrics.climo_forecast(
+        torch.as_tensor(bundles[names[-1]].ensemble_mean(), device=device))
+    fld = _rpss_fields(climo, probs, labels,
+                       {"Y": first.lats, "X": first.lons})
+    return ElrResult(rpss_train=fld(fm.train), rpss_test=fld(fm.test),
+                     test_probs=probs, labels=labels.cpu().numpy(), masks=fm)
+
+
 # --------------------------------------------------------------- NN branch
 @dataclass
 class NNResult:
     rpss_train: Field
     rpss_val: Field
     rpss_test: Field
-    predictions: torch.Tensor       # (F, T, Y, X, 3) winner predictions
+    predictions: torch.Tensor       # (F, T, Y, X, 3) blended winner preds
     labels: np.ndarray              # (F, T, Y, X)
     masks: splits.FoldMasks
     sweeps: Dict[str, SweepResult]
@@ -92,18 +195,19 @@ class NNResult:
 
 def _nn_setup(cfg: PipelineConfig, bundles, log, device="cpu"):
     """NN-branch preamble: fillna, year-bootstrap splits, per-fold rolling
-    tercile labels fit on each fold's train years only.
+    tercile labels fit on each fold's train years only
+    (preprocessing.py:415), on the cross-model mean obs for MME.
 
     Returns (names, filled, first, fold masks, labels (F,T,Y,X) numpy,
     one-hot (F,T,Y,X,3) tensor with NaN -> 0, (edges, present) per fold).
     """
     names = list(bundles)
-    if cfg.is_mme:
-        raise _later("an MME config", "mme")
     if cfg.predictor != "mean":
         raise _later(f"predictor={cfg.predictor!r}", "flags")
     filled = {n: b.fillna(0.0) for n, b in bundles.items()}
     first = filled[names[0]]
+    y_shared = np.mean(np.stack([filled[n].y for n in names]), axis=0) \
+        if cfg.is_mme else first.y
     fm = splits.bootstrap_masks(first.years, cfg.n_bootstraps,
                                 frac_valid=cfg.nn_frac_valid,
                                 frac_test=cfg.nn_frac_test)
@@ -112,7 +216,7 @@ def _nn_setup(cfg: PipelineConfig, bundles, log, device="cpu"):
             f"val={sorted(fm.val_years[i])} test={sorted(fm.test_years[i])}")
 
     wm = timeutils.week_window_matrix(1)
-    y = torch.as_tensor(first.y, device=device)
+    y = torch.as_tensor(y_shared, device=device)
     fits = [terciles.fit_and_label(y, first.weeks, fm.train[f], wm, None)
             for f in range(fm.n_folds)]
     lab = torch.stack([f[0] for f in fits])
@@ -121,21 +225,6 @@ def _nn_setup(cfg: PipelineConfig, bundles, log, device="cpu"):
     y_oh = torch.nan_to_num(terciles.one_hot_labels(lab), nan=0.0)
     return (names, filled, first, fm, lab.cpu().numpy(), y_oh,
             (edges, present))
-
-
-def _nn_rpss(filled, names, preds, labels):
-    """RPSS of the winner predictions vs the constant-1/3 climatology of
-    the last-iterated model's predictor (performance_metrics.py:11-23)."""
-    dev = preds.device
-    climo = metrics.climo_forecast(
-        torch.as_tensor(filled[names[-1]].ensemble_mean(), device=dev))
-    labels = torch.as_tensor(labels, device=dev)
-
-    def _r(mask_set):
-        return torch.stack([
-            metrics.rpss(climo, preds[f], labels[f], mask_set[f])
-            for f in range(len(mask_set))]).cpu().numpy()
-    return _r
 
 
 def resolve_batch_sizes(grid: TuningGrid, T: int) -> TuningGrid:
@@ -150,10 +239,11 @@ def resolve_batch_sizes(grid: TuningGrid, T: int) -> TuningGrid:
     return replace(grid, batch_sizes=tuple(seen))
 
 
-def run_nn_branch(cfg: PipelineConfig, bundles, log=print,
+def run_nn_branch(cfg: PipelineConfig, bundles, log=print, timer=None,
                   training_type="tune", device="cpu") -> NNResult:
     """The NN branch of a tune run on `device`: splits, labels, the U-Net
-    sweep and RPSS maps (train / val / test) per fold."""
+    sweep of every model (blended for MME) and RPSS maps (train / val /
+    test) per fold. `timer` (a StageTimer) counts the optimizer steps."""
     if cfg.architecture != "unet":
         raise _later(f"architecture={cfg.architecture!r}", "flags")
     if cfg.output != "proba":
@@ -164,31 +254,167 @@ def run_nn_branch(cfg: PipelineConfig, bundles, log=print,
         _nn_setup(cfg, bundles, log, device)
 
     sweeps: Dict[str, SweepResult] = {}
-    n = names[0]
-    x = filled[n].predictor_images(cfg.predictor)
-    try:
-        check_divisible(x.shape[1], x.shape[2], max(cfg.tuning.n_blocks))
-    except ValueError as e:
-        raise ValueError(f"model {n}: {e} — choose a domain/step that "
-                         f"yields a divisible grid or pad via "
-                         f"DataBundle.pad_to_grid") from None
-    t0 = time.time()
-    grid_n = resolve_batch_sizes(cfg.tuning, int(x.shape[0]))
-    res = run_unet_sweep(x, y_oh, fm.train, fm.val, grid_n,
-                         epochs=cfg.epochs, device=device)
-    log(f"[nn] model {n}: sweep of {res.val_loss_table.shape[1]} trials x "
-        f"{fm.n_folds} folds in {time.time() - t0:.1f}s {res.timings}; "
-        f"winners={[t.hparams() for t in res.best_trial]}")
-    sweeps[n] = res
+    per_model_preds = []
+    for n in names:
+        x = filled[n].predictor_images(cfg.predictor)
+        try:
+            check_divisible(x.shape[1], x.shape[2], max(cfg.tuning.n_blocks))
+        except ValueError as e:
+            raise ValueError(f"model {n}: {e} — choose a domain/step that "
+                             f"yields a divisible grid or pad via "
+                             f"DataBundle.pad_to_grid") from None
+        t0 = time.time()
+        grid_n = resolve_batch_sizes(cfg.tuning, int(x.shape[0]))
+        res = run_unet_sweep(x, y_oh, fm.train, fm.val, grid_n,
+                             epochs=cfg.epochs, device=device)
+        log(f"[nn] model {n}: sweep of {res.val_loss_table.shape[1]} trials "
+            f"x {fm.n_folds} folds in {time.time() - t0:.1f}s "
+            f"{res.timings}; winners={[t.hparams() for t in res.best_trial]}")
+        sweeps[n] = res
+        per_model_preds.append(res.predictions)
+        if timer is not None:
+            timer.count("train_steps", res.train_steps)
+            timer.count("epochs_run", res.epochs_run)
+    preds = (elr_ops.blend_probabilities(per_model_preds) if cfg.is_mme
+             else per_model_preds[0])
 
-    preds = res.predictions
-    _r = _nn_rpss(filled, names, preds, labels)
-    coords = {"Y": first.lats, "X": first.lons}
-
-    def field(masks):
-        return Field(_r(masks), ("bootstrap", "Y", "X"), coords, "rpss")
+    # RPSS vs the constant-1/3 climatology of the last-iterated model's
+    # predictor (performance_metrics.py:11-23)
+    climo = metrics.climo_forecast(
+        torch.as_tensor(filled[names[-1]].ensemble_mean(), device=device))
+    fld = _rpss_fields(climo, preds, labels,
+                       {"Y": first.lats, "X": first.lons})
     return NNResult(
-        rpss_train=field(fm.train), rpss_val=field(fm.val),
-        rpss_test=field(fm.test),
+        rpss_train=fld(fm.train), rpss_val=fld(fm.val),
+        rpss_test=fld(fm.test),
         predictions=preds, labels=labels, masks=fm, sweeps=sweeps,
-        best_hparams=[{n: t.hparams()} for t in res.best_trial])
+        best_hparams=[{n: sweeps[n].best_trial[f].hparams() for n in names}
+                      for f in range(fm.n_folds)])
+
+
+def settings_fingerprint(cfg: PipelineConfig, source, seed,
+                         synthetic_step) -> dict:
+    """Everything outside the winner weights that changes predictions:
+    preprocessing flags + data provenance. Persisted into the winner
+    manifest, so a replay under other flags can be refused."""
+    return {"standardize": bool(cfg.standardize),
+            "predictor": cfg.predictor,
+            "output": cfg.output,
+            "source": source, "seed": seed,
+            "synthetic_step": synthetic_step,
+            "n_bootstraps": cfg.n_bootstraps,
+            "week": cfg.week}
+
+
+# ------------------------------------------------------------- skill mask
+def skill_mask(nn: NNResult, y_raw: np.ndarray) -> np.ndarray:
+    """Reference end-of-run mask (tune_ECMWF_com.py:123-133): pixels whose
+    fold-0 test labels have < 3 unique classes, or any NaN in raw y."""
+    lab0 = nn.labels[0]
+    test0 = nn.masks.test[0]
+    sel = lab0[test0]
+    uniq = np.zeros(lab0.shape[1:], np.int32)
+    for k in range(3):
+        uniq += (sel == k).any(axis=0)
+    mask1 = uniq < 3
+    mask2 = np.isnan(y_raw).any(axis=0)
+    return mask1 | mask2
+
+
+# ------------------------------------------------------------------ driver
+@dataclass
+class TuneOutputs:
+    config: PipelineConfig
+    elr: ElrResult
+    nn: NNResult
+    mask: np.ndarray
+    paths: Dict[str, str] = field(default_factory=dict)
+    figures: Dict[str, str] = field(default_factory=dict)
+    elapsed_s: float = 0.0
+
+
+def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
+                 make_plots=False, seed=0,
+                 synthetic_step=None, log=print, profile_dir=None,
+                 training_type="tune", device="cpu") -> TuneOutputs:
+    """A whole tune run on `device`: data, ELR branch, NN branch, skill
+    mask, and under `out_root` the JAX CLI's outputs tree:
+    outputs/{out_dir}{result_name}_{obs}/ with ELR_rpss_{train,test}_{week}.nc,
+    unet_rpss_{train,val,test}_{week}.nc, best_hparams_{week}.json and
+    profile_{week}.json; models/{out_dir}{model}_{obs}/{week}/ with the
+    winners manifest and weights."""
+    if training_type != "tune":
+        raise _later(f"training_type={training_type!r}", "flags")
+    if make_plots:
+        raise _later("make_plots", "plots")
+    if profile_dir:
+        raise _later("profile_dir", "profile")
+    timer = StageTimer()
+    t_start = time.time()
+    log(f"####### TUNING {'+'.join(cfg.models)} for {cfg.obs} "
+        f"{cfg.week} ({cfg.name}) on {device} #######")
+    with timer.stage("data"):
+        bundles = load_bundles(cfg, source, seed=seed,
+                               synthetic_step=synthetic_step)
+        bundles = {n: _apply_pad(cfg, b) for n, b in bundles.items()}
+        if cfg.standardize:
+            # bootstrap_splits(standardize=True) (preprocessing.py:338-343,
+            # 452-456): per-pixel affine over full T, before any fillna,
+            # applied once so both branches see the same tensors
+            bundles = {n: b.standardize() for n, b in bundles.items()}
+    first = bundles[list(bundles)[0]]
+
+    # MME blends write under MME_IMD / 2MME_IMD (tune_MME.py:47,92-93,
+    # 135-137); single-model configs keep {model}_{obs}
+    out_dir = os.path.join(out_root, "outputs", cfg.out_dir,
+                           f"{cfg.result_name}_{cfg.obs}")
+    paths = {}
+    fingerprint = settings_fingerprint(cfg, source, seed, synthetic_step)
+
+    log("########### ELR ###########")
+    # each branch ends by copying its RPSS maps to the host, so the stage
+    # timers include the device work
+    with timer.stage("elr"):
+        elr_res = run_elr_branch(cfg, bundles, log, device=device)
+    # on disk before the long NN stage, which may fail
+    for tag, fld in [("train", elr_res.rpss_train),
+                     ("test", elr_res.rpss_test)]:
+        p = os.path.join(out_dir, f"ELR_rpss_{tag}_{cfg.week}.nc")
+        paths[f"elr_{tag}"] = write_netcdf(fld, p)
+    log("########### Neural Network ###########")
+    with timer.stage("nn"):
+        nn_res = run_nn_branch(cfg, bundles, log, timer=timer,
+                               training_type=training_type, device=device)
+    arch = cfg.architecture
+
+    # per-fold winner models (the reference deletes its checkpoints,
+    # tune_ECMWF_com.py:183-186; they are kept here for replay), under
+    # models/{dir}{model}_{obs}/{week} (tune_ECMWF_com.py:37)
+    for n in bundles:
+        mdir = os.path.join(out_root, "models", cfg.out_dir,
+                            f"{n}_{cfg.obs}", cfg.week)
+        # the ported predictor ('mean') is one channel
+        paths[f"winners_{n}"] = checkpoint.save_sweep_winners(
+            nn_res.sweeps[n], mdir, cfg.week, architecture=arch,
+            input_shape=(1, *bundles[n].shape_yx, 1), fingerprint=fingerprint)
+    for tag, fld in [("train", nn_res.rpss_train),
+                     ("val", nn_res.rpss_val),
+                     ("test", nn_res.rpss_test)]:
+        p = os.path.join(out_dir, f"{arch}_rpss_{tag}_{cfg.week}.nc")
+        paths[f"nn_{tag}"] = write_netcdf(fld, p)
+    paths["hparams"] = os.path.join(out_dir, f"best_hparams_{cfg.week}.json")
+    with open(paths["hparams"], "w") as fh:
+        json.dump(nn_res.best_hparams, fh, indent=1, default=str)
+
+    y_raw = np.mean(np.stack([bundles[n].y for n in bundles]), 0) \
+        if cfg.is_mme else first.y
+    mask = skill_mask(nn_res, y_raw)
+
+    out = TuneOutputs(config=cfg, elr=elr_res, nn=nn_res, mask=mask,
+                      paths=paths, elapsed_s=time.time() - t_start)
+    paths["profile"] = timer.dump(
+        os.path.join(out_dir, f"profile_{cfg.week}.json"))
+    log(f"[profile] {json.dumps(timer.summary())}")
+    hh = time.strftime("%H:%M:%S", time.gmtime(out.elapsed_s))
+    log(f"####### DONE {cfg.name} in {hh} #######")
+    return out

@@ -1,0 +1,345 @@
+"""CLI: `python -m s2s_ismr_tpu_torch.run <config> [options]` (port of
+s2s_ismr_tpu/run.py).
+
+One entry point runs any registered tune config on one device:
+
+    python -m s2s_ismr_tpu_torch.run tune_ECMWF_com --synthetic --fast
+    python -m s2s_ismr_tpu_torch.run tune_ECMWF_com --synthetic --fast --cpu
+    python -m s2s_ismr_tpu_torch.run suite --configs tune_ECMWF_com,tune_2MME
+    python -m s2s_ismr_tpu_torch.run --list
+
+The run goes to the GPU (`cuda`) unless `--cpu` is given; without `--cpu`
+and without a card it exits non-zero and never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from dataclasses import replace
+
+_LATER = {
+    "flags": "ROADMAP queue A item 13",
+    "realtime": "ROADMAP queue A item 14",
+    "reports": "ROADMAP queue A item 15",
+    "profile": "ROADMAP queue A item 16",
+}
+
+
+def _not_ported(what, key):
+    return SystemExit(f"error: {what} is not ported to s2s_ismr_tpu_torch "
+                      f"yet ({_LATER[key]}); the JAX CLI "
+                      f"`python -m s2s_ismr_tpu.run` has it")
+
+
+def _check_suite(results, expected_path):
+    """Regression gate (suite --check): per-config elr/nn RPSS test means
+    vs a checked-in expectation file. Returns a list of human-readable
+    failure strings (empty = pass); expected configs that were not run
+    this session are reported but do not fail (a --configs subset run
+    checks only its subset)."""
+    with open(expected_path) as fh:
+        expected = json.load(fh)
+    tol = float(expected.get("tolerance", 0.0))
+    failures = []
+    for name, want in expected.get("configs", {}).items():
+        got = results.get(name)
+        if got is None:
+            print(f"[check] skip {name}: not run this session",
+                  file=sys.stderr)
+            continue
+        if "error" in got:
+            failures.append(f"{name}: run errored: {got['error']}")
+            continue
+        for key in ("elr_rpss_test_mean", "nn_rpss_test_mean"):
+            if key not in want:
+                continue
+            drift = abs(float(got[key]) - float(want[key]))
+            if not (drift <= tol):        # catches NaN too
+                failures.append(
+                    f"{name}.{key}: got {got[key]!r}, expected "
+                    f"{want[key]!r} (drift {drift:.3e} > tol {tol:.1e})")
+    return failures
+
+
+def _run(cfg, args, device, **kw):
+    """One tune config through run_pipeline; returns (outputs, summary)."""
+    import numpy as np
+    from .pipelines import tune
+    out = tune.run_pipeline(cfg, source=args.source, out_root=args.out,
+                            seed=args.seed, synthetic_step=args.step,
+                            device=device, **kw)
+    return out, {
+        "config": cfg.name,
+        "elapsed_s": round(out.elapsed_s, 2),
+        "elr_rpss_test_mean": float(np.nanmean(out.elr.rpss_test.values)),
+        "nn_rpss_test_mean": float(np.nanmean(out.nn.rpss_test.values)),
+    }
+
+
+def _device(args):
+    """'cpu' with --cpu, else 'cuda' — or None (with a message) when there
+    is no card."""
+    if args.cpu:
+        return "cpu"
+    import torch
+    if not torch.cuda.is_available():
+        print("error: no CUDA device; the port runs on the GPU. Pass --cpu "
+              "to run on the CPU.", file=sys.stderr)
+        return None
+    return "cuda"
+
+
+def _parser():
+    ap = argparse.ArgumentParser(prog="s2s_ismr_tpu_torch.run",
+                                 description=__doc__,
+                                 formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("config", nargs="?",
+                    help="pipeline name (e.g. tune_ECMWF_com) or `suite`")
+    ap.add_argument("--list", action="store_true", help="list configs")
+    ap.add_argument("--source", default="synthetic",
+                    choices=["synthetic", "iridl"], help="data source")
+    ap.add_argument("--synthetic", dest="source", action="store_const",
+                    const="synthetic")
+    ap.add_argument("--fast", action="store_true",
+                    help="shrunken smoke variant (2 folds, 2 trials)")
+    ap.add_argument("--plots", action="store_true",
+                    help="render figures (not ported yet)")
+    ap.add_argument("--out", default=".", help="output root directory")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--step", type=float, default=None,
+                    help="synthetic grid step in degrees")
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--folds", type=int, default=None)
+    ap.add_argument("--training-type", dest="training_type",
+                    default="tune", choices=["tune", "train", "load"],
+                    help="only 'tune' (the grid search) is ported")
+    ap.add_argument("--week", default=None,
+                    help="re-target the config at another lead week (wk1, "
+                         "wk2, wk3-4); `suite` accepts a comma list and "
+                         "runs the configs x weeks cross product")
+    ap.add_argument("--standardize", action="store_true",
+                    help="per-pixel standardize x/y over T before splits")
+    ap.add_argument("--output", choices=("proba", "deterministic"),
+                    default="proba", help="U-Net head (only proba ported)")
+    ap.add_argument("--predictor", choices=("mean", "multi_predictor",
+                                            "stacked"), default=None,
+                    help="predictor mode (only mean ported)")
+    ap.add_argument("--batch-size", dest="batch_size", default=None,
+                    metavar="N|full",
+                    help="override the tuning grid's batch sizes with one "
+                         "value; 'full' trains whole-training-set batches "
+                         "(changes SGD semantics, never a default)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU instead of the GPU")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="profiler traces (not ported yet)")
+    ap.add_argument("--configs", default=None,
+                    help="comma-separated config list for `suite` "
+                         "(default: all tune configs)")
+    ap.add_argument("--resume", action="store_true",
+                    help="suite: skip configs already recorded in "
+                         "<out>/suite_summary.json by a run with the same "
+                         "settings")
+    ap.add_argument("--check", default=None, metavar="JSON",
+                    help="suite: exit 1 if a config's elr/nn_rpss_test_mean "
+                         "drifts from JSON ({'tolerance': t, 'configs': "
+                         "{name: {...}}}) by more than the tolerance")
+    return ap
+
+
+def _reject_unported(args):
+    if args.config == "realtime":
+        raise _not_ported("`realtime`", "realtime")
+    if args.config in ("accs", "barplot"):
+        raise _not_ported(f"`{args.config}`", "reports")
+    if args.training_type != "tune":
+        raise _not_ported(f"--training-type {args.training_type}", "flags")
+    if args.output != "proba":
+        raise _not_ported(f"--output {args.output}", "flags")
+    if args.predictor not in (None, "mean"):
+        raise _not_ported(f"--predictor {args.predictor}", "flags")
+    if args.plots:
+        raise _not_ported("--plots", "reports")
+    if args.profile:
+        raise _not_ported("--profile", "profile")
+
+
+def _check_weeks(args):
+    """Validate --week up front; returns an exit code or None."""
+    from .pipelines.configs import LEAD_MAPPING
+    if args.config != "suite" and "," in args.week:
+        raise SystemExit("--week takes a single week outside `suite`")
+    wk_list = args.week.split(",")
+    bad = [w for w in wk_list if w not in LEAD_MAPPING]
+    if bad:
+        # catches typos AND stray empties ('wk1,' would otherwise
+        # silently run the config's BASE week under a '[ ]' key)
+        print(f"error: unknown week(s) {bad}; choose from "
+              f"{sorted(LEAD_MAPPING)}", file=sys.stderr)
+        return 2
+    if len(set(wk_list)) != len(wk_list):
+        print("error: duplicate weeks in --week", file=sys.stderr)
+        return 2
+    return None
+
+
+def _resolve(name, args):
+    from .pipelines import get_config
+    cfg = get_config(name)
+    if args.fast:
+        cfg = cfg.fast_variant()
+    if args.epochs:
+        cfg = replace(cfg, epochs=args.epochs)
+    if args.folds:
+        cfg = replace(cfg, n_bootstraps=args.folds)
+    if args.standardize:
+        cfg = replace(cfg, standardize=True)
+    if args.batch_size:
+        try:
+            bs = 0 if args.batch_size == "full" else int(args.batch_size)
+        except ValueError:
+            raise SystemExit("--batch-size must be a positive integer "
+                             "or 'full'") from None
+        if args.batch_size != "full" and bs <= 0:
+            raise SystemExit("--batch-size must be a positive integer "
+                             "or 'full'")
+        cfg = replace(cfg, tuning=replace(cfg.tuning, batch_sizes=(bs,)))
+    return cfg
+
+
+def _suite(args):
+    """Several configs (x weeks) in one process; the summary is rewritten
+    atomically after every config, so a killed session can --resume."""
+    from .pipelines import CONFIGS
+    names = (args.configs.split(",") if args.configs
+             else [n for n in CONFIGS])
+    weeks = args.week.split(",") if args.week else [None]
+    # resolve every name up front: a typo in the 3rd config must not
+    # abort the session after an hour of work on the first two
+    try:
+        cfgs = []
+        for nm in names:
+            base = _resolve(nm, args)
+            for w in weeks:
+                c = base.with_week(w) if w else base
+                if w:
+                    # distinct summary keys per (config, week), even for a
+                    # single --week; file names carry the week already
+                    c = replace(c, name=f"{c.name}[{w}]")
+                cfgs.append(c)
+    except KeyError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
+    device = _device(args)
+    if device is None:
+        return 2
+    # --resume only reuses results produced under identical settings (a
+    # fast smoke must not satisfy a later production resume)
+    fingerprint = {k: getattr(args, k) for k in
+                   ("fast", "epochs", "folds", "standardize", "output",
+                    "predictor", "source", "seed", "step", "training_type",
+                    "batch_size", "week", "cpu")}
+    t0 = time.time()
+    prior_total = 0.0   # wall already spent in resumed-over sessions
+    spath = os.path.join(args.out, "suite_summary.json")
+    results = {}
+    if args.resume and os.path.exists(spath):
+        try:
+            with open(spath) as fh:
+                prior = json.load(fh)
+        except json.JSONDecodeError:
+            print(f"[suite] {spath} is corrupt; starting fresh",
+                  file=sys.stderr)
+            prior = {}
+        if prior.get("settings", {}) == fingerprint:
+            # keep successes; failed configs are retried
+            results = {k: v for k, v in prior.get("configs", {}).items()
+                       if "error" not in v}
+            prior_total = float(prior.get("total_s", 0.0))
+            if results:
+                print(f"[suite] resuming past {sorted(results)}",
+                      file=sys.stderr)
+        elif prior:
+            print("[suite] prior summary has different run settings; "
+                  "starting fresh", file=sys.stderr)
+    os.makedirs(args.out, exist_ok=True)
+
+    def _dump(summary):
+        tmp = spath + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(summary, fh, indent=1)
+        os.replace(tmp, spath)    # atomic: a kill can't truncate it
+
+    def _summary(partial):
+        return {"configs": results, "settings": fingerprint,
+                "total_s": round(prior_total + time.time() - t0, 2),
+                "partial": partial}
+
+    for cfg in [c for c in cfgs if c.name not in results]:
+        try:
+            _, results[cfg.name] = _run(cfg, args, device)
+        except Exception as e:
+            # one config must not kill the session; --resume retries it
+            results[cfg.name] = {"config": cfg.name,
+                                 "error": f"{type(e).__name__}: {e}"}
+            print(f"[suite] {cfg.name} FAILED: {e}", file=sys.stderr)
+        _dump(_summary(partial=True))   # survive a kill mid-suite
+    summary = _summary(partial=False)
+    check_failures = []
+    if args.check:
+        check_failures = _check_suite(results, args.check)
+        summary["check"] = {"expected": args.check,
+                            "failures": check_failures,
+                            "ok": not check_failures}
+        for line in check_failures:
+            print(f"[check] FAIL {line}", file=sys.stderr)
+        if not check_failures:
+            print("[check] ok: all configs within tolerance",
+                  file=sys.stderr)
+    _dump(summary)
+    print(json.dumps(summary, indent=1))
+    if any("error" in r for r in results.values()) or check_failures:
+        return 1
+    return 0
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.list or not args.config:
+        from .pipelines import CONFIGS
+        for name, cfg in CONFIGS.items():
+            print(f"{name:18s} models={'+'.join(cfg.models):16s} "
+                  f"years={cfg.years} week={cfg.week} dir={cfg.out_dir!r}")
+        print("suite              run several tune configs in one process")
+        return 0
+    _reject_unported(args)
+    if args.week:
+        rc = _check_weeks(args)
+        if rc is not None:
+            return rc
+    if args.config == "suite":
+        return _suite(args)
+
+    try:
+        cfg = _resolve(args.config, args)
+        if args.week:
+            cfg = cfg.with_week(args.week)
+    except KeyError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
+    device = _device(args)
+    if device is None:
+        return 2
+    out, summary = _run(cfg, args, device)
+    summary["outputs"] = out.paths
+    summary["figures"] = out.figures
+    print(json.dumps(summary, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

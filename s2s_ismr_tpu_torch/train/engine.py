@@ -227,9 +227,18 @@ def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
 
 def predict(model: nn.Module, variables, x):
     """Inference forward over the full T axis (eval mode, running BN).
-    variables: a state_dict, or None for the model's own state."""
-    with torch.no_grad():
-        if variables is None:
-            return model(x, train=False)
-        return torch.func.functional_call(model, variables, (x,),
-                                          {"train": False})
+    variables: a state_dict, or None for the model's own state.
+
+    cuDNN is held to deterministic algorithms here (its transposed conv
+    may otherwise sum in another order from call to call), so a winner's
+    predictions reproduce bit for bit when it is reloaded."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            if variables is None:
+                return model(x, train=False)
+            return torch.func.functional_call(model, variables, (x,),
+                                              {"train": False})
+    finally:
+        torch.backends.cudnn.deterministic = prev

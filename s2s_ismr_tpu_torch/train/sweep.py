@@ -92,6 +92,18 @@ def lane_generator(base_seed, fold_idx, trial_idx) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed.generate_state(1)[0]))
 
 
+def build_winner(config: UNetConfig, state, in_channels, device="cpu"):
+    """A fresh U-Net holding `state`. The sweep's winner forward and the
+    checkpoint replay both build the model this way, so a reloaded winner
+    runs exactly the computation the sweep ran."""
+    # a private generator: the throw-away init must not draw from the
+    # global RNG
+    model = UNet(config, in_channels, generator=torch.Generator(),
+                 device=device)
+    model.load_state_dict(state)
+    return model
+
+
 def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
                    grid: TuningGrid, epochs: int = 100, base_seed: int = 42,
                    device="cpu") -> SweepResult:
@@ -136,7 +148,7 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
                 n_ep = int(torch.isfinite(hist).sum())
                 total_epochs += n_ep
                 total_steps += n_ep * n_real
-                lane_state[f, t.index] = (model, best)
+                lane_state[f, t.index] = best
                 lane_vloss[f, t.index] = vloss
     t_execute = time.perf_counter() - t0
 
@@ -152,8 +164,9 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
     winner_cfgs = [config(t) for t in best_trials]
     winner_vars, preds = [], []
     for f, t in enumerate(best_trials):
-        model, state = lane_state[f, t.index]   # model holds its best state
+        state = lane_state[f, t.index]
         winner_vars.append(state)
+        model = build_winner(winner_cfgs[f], state, x.shape[-1], device)
         preds.append(predict(model, None, x))
     return SweepResult(
         best_val_loss=val_table[np.arange(F), best_idx],

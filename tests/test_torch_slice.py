@@ -179,7 +179,7 @@ def test_run_nn_branch_end_to_end(setups):
 
 @pytest.mark.parametrize("change", [
     dict(architecture="cnn"), dict(output="deterministic"),
-    dict(predictor="stacked"), dict(models=("GEFS", "IITM"))])
+    dict(predictor="stacked"), dict(predictor="multi_predictor")])
 def test_unported_branches_raise(setups, change):
     _, _, _, tcfg, tb, _ = setups
     with pytest.raises(NotImplementedError, match="ROADMAP"):
