@@ -6,14 +6,18 @@
 Phases, each on its own lines; any failure exits non-zero before the last
 line is printed:
   1. device: needs CUDA; prints the card's name and power limit;
-  2. build: compiles the package's CUDA kernels from csrc/;
+  2. build: compiles the package's CUDA kernels from csrc/ (the wrapper's
+     tile table and K chunk must equal the library's);
   3. kernel vs plain: the conv3x3 kernel against its plain PyTorch version
      run in float64 (TF32 off everywhere) at every conv shape of the
-     tune_ECMWF_com U-Nets (filters 2 and 3, n_blocks 3, 32x32, batch 16),
-     both acts, forward and the backward's dx / dw / db, rtol 1e-4 /
-     atol 1e-5 (f32, sum order only), and at a few edge shapes; then the
-     time of kernel and plain (float32) at each slice shape, for the
-     forward and for the backward's dx;
+     tune_ECMWF_com U-Nets (filters 2 and 3, n_blocks 3, 32x32, batch 16)
+     and at the edge shapes, both acts, rtol 1e-4 / atol 1e-5 (f32, sum
+     order only): the forward, dx / dw / db through the autograd backward,
+     and the dx mode itself (dx and g'), every launch twice and bit-equal;
+     then, at each slice shape, the device time of the kernel and of
+     cuDNN's F.conv2d in turns, and of the plain version, for the forward
+     and the dx mode, beside the bound and the kernel's share of it (FLOP
+     at the float32 rate, and beside it at the 3xTF32 rate);
   4. main path: the NN branch of tune_ECMWF_com (fast variant: 2 folds,
      2 trials, up to 6 epochs) on the synthetic 32x32 grid, T = 349; checks
      finite val losses and RPSS, and that the kernel was launched exactly as
@@ -30,8 +34,12 @@ line is printed:
      cuda and on the CPU: NaN pattern identical, probabilities within 1e-4,
      test-RPSS means within 1e-5 (the TPU v5e means of
      expected/suite_rpss_v5e.json are printed beside, not compared);
-  7. the kernels JSON line (launches summed over phases 4 and 5), the card
-     line, then the result line {"ok": true, "device": {...}}.
+  7. checks that neither jax nor any module of the JAX package
+     (s2s_ismr_tpu) was loaded; the kernels JSON line (launches summed over
+     phases 4 and 5; times and bounds summed over the slice shapes, the
+     forward under ms / plain_ms / library_ms / bound_ms /
+     bound_3xtf32_ms, the dx mode under dx_*), the card line, then the
+     result line {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -43,12 +51,7 @@ import sys
 import tempfile
 import time
 
-RTOL, ATOL = 1e-4, 1e-5
 BATCH = 16
-# the kernel's edges: 1x1 maps, several 32-column tiles (W up to 64 in the
-# 64x64 configs), C and O off the 16/32 chunk sizes, C = O = 384
-EDGE_SHAPES = ((2, 1, 1, 3, 5), (3, 64, 64, 17, 33), (1, 33, 65, 2, 1),
-               (1, 9, 70, 130, 40), (2, 4, 4, 384, 384))
 
 
 class SmokeFailure(Exception):
@@ -69,54 +72,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def unet_conv_shapes(torch, UNet, UNetConfig, FusedConv3x3, filters,
-                     batch):
-    """(N, H, W, C, O) of every kernel conv of the tune_ECMWF_com U-Net
-    with `filters` on the 32x32 grid, recorded from one forward."""
-    shapes = []
-    model = UNet(UNetConfig(filters=filters, n_blocks=3), 1,
-                 generator=torch.Generator().manual_seed(0), device="cuda")
-
-    def hook(mod, args):
-        s = tuple(args[0].shape) + (mod.conv.kernel.shape[-1],)
-        if s not in shapes:
-            shapes.append(s)
-    for m in model.modules():
-        if isinstance(m, FusedConv3x3):
-            m.register_forward_pre_hook(hook)
-    with torch.no_grad():
-        model(torch.zeros(batch, 32, 32, 1, device="cuda"))
-    return shapes
-
-
-def timed(torch, fn, reps=50):
-    """(ms per call by CUDA events, host dispatch included; ms of device
-    kernel time per call by torch.profiler, or None if it saw none)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(5):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    call_ms = start.elapsed_time(end) / reps
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = sum(getattr(e, "self_device_time_total", 0)
-                 for e in prof.key_averages())
-    return call_ms, (dev_us / 1e3 / reps if dev_us else None)
-
-
 def errors(got, want):
     """Max abs / rel error of `got` against `want`, and how far the worst
     element lies past atol + rtol * |want| (<= 0 passes)."""
     diff = (got.double() - want).abs()
-    excess = float((diff - (ATOL + RTOL * want.abs())).max())
+    excess = float((diff - (bench.ATOL + bench.RTOL * want.abs())).max())
     return (float(diff.max()),
             float((diff / want.abs().clamp_min(1e-30)).max()), excess)
 
@@ -132,8 +92,10 @@ def run_both(fn, x, k, b, g, act, dtype):
 
 def kernel_vs_plain(torch, conv, shapes, backward=True,
                     acts=("elu", "none")):
-    """The kernel's forward (and backward: dx, dw, db) against the plain
-    version at each shape; returns the largest abs error.
+    """The kernel's forward (and, through the autograd backward, dx, dw,
+    db) against the plain version at each shape; with `backward`, also the
+    dx mode itself (dx and g') and bit-equal repeats of every launch.
+    Returns the largest abs error.
 
     The yardstick is the plain version in float64 on the same inputs: the
     plain float32 version goes through cuDNN, whose weight-gradient
@@ -141,14 +103,8 @@ def kernel_vs_plain(torch, conv, shapes, backward=True,
     beside the kernel's but not used as the reference."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     max_abs = 0.0
-    for (n, h, w, c, o) in shapes:
-        x = torch.randn(n, h, w, c, device="cuda", generator=gen)
-        k = torch.randn(3, 3, c, o, device="cuda", generator=gen) \
-            * (1.0 / (9 * c)) ** 0.5
-        b = 0.1 * torch.randn(o, device="cuda", generator=gen)
-        # upstream gradient at the scale of a mean loss over the map
-        g = torch.randn(n, h, w, o, device="cuda", generator=gen) \
-            / (n * h * w) ** 0.5
+    for shape in shapes:
+        x, k, b, g = bench.inputs(torch, shape, gen)
         for act in acts:
             if backward:
                 runs = [run_both(fn, x, k, b, g, act, dt) for fn, dt in (
@@ -162,57 +118,88 @@ def kernel_vs_plain(torch, conv, shapes, backward=True,
                             (conv.conv3x3_bias_act(x, k, b, act),),
                             (conv.conv3x3_bias_act_plain(x, k, b, act),)]
             ref, got, plain = runs
-            tag = f"{(n, h, w, c, o)} {act}"
+            tag = f"{shape} {act}"
             parts = []
             for name, a, p, r in zip(("fwd", "dx", "dw", "db"), got, plain,
                                      ref):
                 ea, er, ex = errors(a, r)
                 pa = errors(p, r)[0]
                 check(ex <= 0, f"{name} {tag}: kernel max abs err {ea:.3e} "
-                      f"vs float64 exceeds rtol {RTOL} / atol {ATOL}")
+                      f"vs float64 exceeds rtol {bench.RTOL} / atol "
+                      f"{bench.ATOL}")
                 max_abs = max(max_abs, ea)
                 parts.append(f"{name} {ea:.1e}/{er:.1e} (plain {pa:.1e})")
             print(f"  {tag:<28} kernel abs/rel err vs f64: "
                   + "  ".join(parts))
+        if backward:
+            # the dx mode itself (dx and g'), both acts, every launch twice
+            try:
+                errs = bench.check_tile(torch, conv, shape, None, gen)
+            except AssertionError as e:
+                raise SmokeFailure(str(e)) from None
+            max_abs = max(max_abs, *errs.values())
+            print(f"  {str(shape):<28} dx mode vs f64 and repeats bit-equal: "
+                  + " ".join(f"{k} {v:.1e}" for k, v in errs.items()))
     return max_abs
 
 
 def kernel_times(torch, conv, shapes):
-    """Time per call of kernel and plain at each shape, for the forward
-    (ELU, bias) and for the backward's dx (the conv of the upstream
-    gradient (N, H, W, O) with the rotated, transposed taps (3, 3, O, C),
-    no bias, no act). Returns {'fwd': (kernel ms, plain ms), 'dx': (...)},
-    the device times summed over the shapes."""
+    """Device time per launch at each slice shape, by torch.profiler, of the
+    kernel and of cuDNN's F.conv2d (the library yardstick, TF32 off), in
+    turns (kernel, cuDNN, kernel, cuDNN), and of the plain version once:
+    the forward (bias + ELU) and the dx mode (ELU: dx and g'). cuDNN's dx
+    is one F.conv2d of g with the adjoint taps made beforehand, so it does
+    less than the kernel (no ELU', no g'). Returns the sums over the
+    shapes, in ms, with the bound summed the same way."""
+    import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
-    sums = {"fwd": [0.0, 0.0], "dx": [0.0, 0.0]}
+    keys = ("ms", "library_ms", "plain_ms", "bound_ms", "ops_ms",
+            "bytes_ms", "bound_3xtf32_ms")
+    tf32x3 = bench.PEAK_TF32_FLOPS / 3
+    sums = {m: dict.fromkeys(keys, 0.0) for m in ("fwd", "dx")}
+    for shape in shapes:
+        x, k, b, g = bench.inputs(torch, shape, gen)
+        with torch.no_grad():
+            out = conv.conv3x3_bias_act(x, k, b, "elu")
+            x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            k_oihw = k.permute(3, 2, 0, 1).contiguous()
+            k_adj = k.flip((0, 1)).transpose(2, 3).permute(3, 2, 0, 1) \
+                .contiguous()
+            calls = {
+                "fwd": (lambda: conv.conv3x3_bias_act(x, k, b, "elu"),
+                        lambda: F.conv2d(x_nchw, k_oihw, b, padding=1),
+                        lambda: conv.conv3x3_bias_act_plain(x, k, b, "elu")),
+                "dx": (lambda: conv._dx_call(g, out, k, "elu"),
+                       lambda: F.conv2d(g_nchw, k_adj, None, padding=1),
+                       lambda: conv.conv3x3_dx_plain(g, out, k, "elu"))}
+            parts = []
+            for mode, (kern, lib, plain) in calls.items():
+                t = [bench.device_ms(torch, f)
+                     for f in (kern, lib, kern, lib, plain)]
+                check(None not in t, f"{shape} {mode}: the profiler saw no "
+                      f"device time")
+                ms, lib_ms = (t[0] + t[2]) / 2, (t[1] + t[3]) / 2
+                t_ops, t_bytes = bench.bound_parts(shape, mode == "dx")
+                bnd, by = bench.bound(shape, mode == "dx")
+                bnd3, by3 = bench.bound(shape, mode == "dx", flops=tf32x3)
+                s = sums[mode]
+                for key, v in zip(keys, (ms, lib_ms, t[4], bnd, t_ops,
+                                         t_bytes, bnd3)):
+                    s[key] += v
+                parts.append(
+                    f"{mode}: kernel {t[0] * 1e3:.2f}/{t[2] * 1e3:.2f} us, "
+                    f"cuDNN {t[1] * 1e3:.2f}/{t[3] * 1e3:.2f} us, plain "
+                    f"{t[4] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us "
+                    f"({by}), {bnd / ms:.1%} of bound; at 3xTF32 "
+                    f"{bnd3 * 1e3:.3f} us ({by3}), {bnd3 / ms:.1%}")
+        print(f"  {str(shape):<22} " + "   ".join(parts))
+    return sums
 
-    def fmt(v):
-        return "n/a" if v is None else f"{v * 1e3:.2f} us"
-    for (n, h, w, c, o) in shapes:
-        x = torch.randn(n, h, w, c, device="cuda", generator=gen)
-        k = torch.randn(3, 3, c, o, device="cuda", generator=gen)
-        b = torch.randn(o, device="cuda", generator=gen)
-        g = torch.randn(n, h, w, o, device="cuda", generator=gen)
-        k_adj = k.flip((0, 1)).transpose(2, 3).contiguous()
-        calls = {"fwd": (x, k, b, "elu"), "dx": (g, k_adj, None, "none")}
-        parts = []
-        for name, args in calls.items():
-            with torch.no_grad():
-                t_k = timed(torch, lambda: conv.conv3x3_bias_act(*args))
-                t_p = timed(torch, lambda: conv.conv3x3_bias_act_plain(*args))
-            sums[name][0] += t_k[1] if t_k[1] is not None else t_k[0]
-            sums[name][1] += t_p[1] if t_p[1] is not None else t_p[0]
-            parts.append(f"{name}: kernel {t_k[0] * 1e3:.1f} us (device "
-                         f"{fmt(t_k[1])}) plain {t_p[0] * 1e3:.1f} us "
-                         f"(device {fmt(t_p[1])})")
-        print(f"  {str((n, h, w, c, o)):<22} per call  " + "   ".join(parts))
-    return {k: tuple(v) for k, v in sums.items()}
 
-
-def main_path(torch, conv, card, unet_mods):
+def main_path(torch, conv, card):
     import numpy as np
-    from s2s_ismr_tpu.field import Field
-    from s2s_ismr_tpu.io import read_netcdf, write_netcdf
+    from s2s_ismr_tpu_torch.field import Field
+    from s2s_ismr_tpu_torch.io import read_netcdf, write_netcdf
     from s2s_ismr_tpu_torch.pipelines import get_config
     from s2s_ismr_tpu_torch.pipelines.tune import load_bundles, run_nn_branch
 
@@ -257,7 +244,7 @@ def main_path(torch, conv, card, unet_mods):
     batches = (int(res.masks.val.sum(1).max()), b.x.shape[0])
     print(f"  kernel vs plain forward at N = {batches}, filters {filters}")
     max_abs = max(kernel_vs_plain(
-        torch, conv, unet_conv_shapes(torch, *unet_mods, f, n),
+        torch, conv, bench.slice_shapes(torch, (f,), n),
         backward=False, acts=("elu",)) for f in filters for n in batches)
     print(f"  mean test RPSS on land per fold "
           f"{res.rpss_test.values[:, land].mean(1).tolist()}")
@@ -281,7 +268,7 @@ def pipeline_path(torch, conv, card):
     """The CLI's whole tune run in-process on cuda; returns the kernel
     launches of that run."""
     import numpy as np
-    from s2s_ismr_tpu.io import read_netcdf
+    from s2s_ismr_tpu_torch.io import read_netcdf
     from s2s_ismr_tpu_torch import run
     from s2s_ismr_tpu_torch.pipelines import tune
     from s2s_ismr_tpu_torch.train import checkpoint
@@ -425,14 +412,14 @@ def elr_cuda_vs_cpu(torch):
 
 
 def main():
+    global bench
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
     from s2s_ismr_tpu_torch.kernels import _build, conv
-    from s2s_ismr_tpu_torch.models.layers import FusedConv3x3
-    from s2s_ismr_tpu_torch.models.unet import UNet, UNetConfig
+    from s2s_ismr_tpu_torch.kernels import conv_bench as bench
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -450,25 +437,33 @@ def main():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+        check(conv.kernel_tiles() == conv.TILES
+              and conv.kernel_chunk() == conv._BK,
+              f"tile table / K chunk of the library {conv.kernel_tiles()} / "
+              f"{conv.kernel_chunk()} differ from the wrapper's "
+              f"{conv.TILES} / {conv._BK}")
 
         print("[3/6] kernel vs plain (TF32 off), batch 16")
-        unet_mods = (UNet, UNetConfig, FusedConv3x3)
-        shapes = []
-        for f in (2, 3):
-            shapes += [s for s in unet_conv_shapes(torch, *unet_mods, f, BATCH)
-                       if s not in shapes]
+        shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  edge shapes")
-        max_abs = max(max_abs, kernel_vs_plain(torch, conv, EDGE_SHAPES))
+        max_abs = max(max_abs, kernel_vs_plain(torch, conv,
+                                               bench.EDGE_SHAPES))
+        print(f"  device time per launch at the {len(shapes)} slice shapes "
+              f"(kernel and cuDNN in turns; on {card})")
         times = kernel_times(torch, conv, shapes)
-        ms, plain_ms = times["fwd"]
-        print(f"  {len(shapes)} shapes, device time summed over the shapes: "
-              f"forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; dx "
-              f"kernel {times['dx'][0]:.4f} ms, plain {times['dx'][1]:.4f} "
-              f"ms; max abs err {max_abs:.3e}")
+        for mode, s in times.items():
+            print(f"  {mode} summed over {len(shapes)} shapes: kernel "
+                  f"{s['ms']:.4f} ms, cuDNN {s['library_ms']:.4f} ms, plain "
+                  f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
+                  f"({s['bound_ms'] / s['ms']:.1%} of it; FLOP "
+                  f"{s['ops_ms']:.4f} ms, bytes {s['bytes_ms']:.4f} ms); "
+                  f"bound at 3xTF32 {s['bound_3xtf32_ms']:.4f} ms "
+                  f"({s['bound_3xtf32_ms'] / s['ms']:.1%} of it)")
+        print(f"  max abs err {max_abs:.3e}")
 
         print("[4/6] main path: tune_ECMWF_com NN branch, fast variant")
-        launches, main_abs = main_path(torch, conv, card, unet_mods)
+        launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
         print("[5/6] main path: `python -m s2s_ismr_tpu_torch.run "
@@ -479,16 +474,29 @@ def main():
               "(10 folds), cuda vs CPU")
         elr_cuda_vs_cpu(torch)
         check("jax" not in sys.modules, "jax was imported")
+        jax_pkg = [m for m in sys.modules
+                   if m == "s2s_ismr_tpu" or m.startswith("s2s_ismr_tpu.")]
+        check(not jax_pkg, f"modules of the JAX package were loaded: "
+              f"{jax_pkg}")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
+    fwd, dx = times["fwd"], times["dx"]
     print(json.dumps({"kernels": [{
         "name": "conv3x3_bias_act", "route": "cuda",
         "source": "s2s_ismr_tpu_torch/csrc/conv3x3.cu",
         "replaces": "s2s_ismr_tpu/kernels/conv.py:78",
         "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": ("operations" if fwd["ops_ms"] >= fwd["bytes_ms"]
+                     else "bytes"),
+        "library_ms": fwd["library_ms"],
+        "dx_ms": dx["ms"], "dx_plain_ms": dx["plain_ms"],
+        "dx_bound_ms": dx["bound_ms"], "dx_library_ms": dx["library_ms"],
+        "bound_3xtf32_ms": fwd["bound_3xtf32_ms"],
+        "dx_bound_3xtf32_ms": dx["bound_3xtf32_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,16 @@ NVIDIA H100.
 
 The JAX package `s2s_ismr_tpu` stays the reference; every module here keeps
 its counterpart's name (`s2s_ismr_tpu/X/y.py` -> `s2s_ismr_tpu_torch/X/y.py`)
-and is held against it by the `tests/test_torch_*.py` parity tests. The
-numpy-only host layer (`timeutils`, `grid`, `field`, `data`, `io`,
-`train.splits`) is shared by import, not copied. This package imports
-`torch` and never `jax`.
+and is held against it by the `tests/test_torch_*.py` parity tests. This
+package imports `torch`, never `jax`, and nothing of `s2s_ismr_tpu`: the
+numpy host layer (`timeutils`, `grid`, `field`, `data`, `io`,
+`train.splits`, `profiling.StageTimer`) is the port's own copy, held
+bit-equal to the JAX package's by `tests/test_torch_host.py`.
 
 Layout (the hindcast tuning run, U-Net / tune / proba / mean predictor):
+  timeutils, grid, field, io, data, profiling
+             the numpy host layer: calendars, grids, labeled arrays,
+             netcdf, the synthetic and IRIDL data sources, stage timers
   ops        masked quantiles, rolling tercile labels, RPS/RPSS, the ELR
              baseline (pixel-parallel IRLS) and the MME blend
   kernels    hand-written CUDA kernels (csrc/) with their plain versions

@@ -76,9 +76,13 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.s2s_conv3x3_bias_act_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci,
-                                                 ci, ci, ci, vp]
-        lib.s2s_conv3x3_bias_act_f32.restype = ci
+        lib.s2s_conv3x3_f32.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+        lib.s2s_conv3x3_f32.restype = ci
+        pi = ctypes.POINTER(ci)
+        lib.s2s_conv3x3_tile.argtypes = [ci, pi, pi, pi, pi]
+        lib.s2s_conv3x3_tile.restype = ci
+        lib.s2s_conv3x3_chunk.argtypes = []
+        lib.s2s_conv3x3_chunk.restype = ci
         lib.s2s_cuda_error_string.argtypes = [ci]
         lib.s2s_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -16,8 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from s2s_ismr_tpu.timeutils import N_ISO_WEEKS
-
+from ..timeutils import N_ISO_WEEKS
 from .quantiles import masked_quantile
 
 TERCILE_QS = (1.0 / 3.0, 2.0 / 3.0)

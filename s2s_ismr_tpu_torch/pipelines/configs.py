@@ -12,8 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Dict, Optional, Tuple
 
-from s2s_ismr_tpu.grid import Domain
-
+from ..grid import Domain
 from ..train.sweep import TuningGrid
 
 # lead-day windows per named week (dataloader.py:169)

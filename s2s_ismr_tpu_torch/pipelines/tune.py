@@ -24,17 +24,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-from s2s_ismr_tpu import timeutils
-from s2s_ismr_tpu.data.bundle import DataBundle
-from s2s_ismr_tpu.field import Field
-from s2s_ismr_tpu.grid import check_divisible
-from s2s_ismr_tpu.io import write_netcdf
-from s2s_ismr_tpu.profiling import StageTimer
-from s2s_ismr_tpu.train import splits
-
+from .. import timeutils
+from ..data.bundle import DataBundle
+from ..field import Field
+from ..grid import check_divisible
+from ..io import write_netcdf
 from ..ops import elr as elr_ops
 from ..ops import metrics, terciles
-from ..train import checkpoint
+from ..profiling import StageTimer
+from ..train import checkpoint, splits
 from ..train.sweep import SweepResult, TuningGrid, run_unet_sweep
 from .configs import PipelineConfig
 
@@ -56,9 +54,9 @@ def _later(what, key):
 def load_bundles(cfg: PipelineConfig, source="synthetic", seed=0,
                  synthetic_step=None, download=True) -> Dict[str, DataBundle]:
     """One DataBundle per model, from the synthetic generator or the IRIDL
-    gateway (numpy host code shared with the JAX package)."""
+    gateway (the port's copy of the JAX package's numpy host code)."""
     if source == "synthetic":
-        from s2s_ismr_tpu.data import synthetic
+        from ..data import synthetic
         step = synthetic_step or (cfg.regrid or 1.0)
         # native-grid configs (regrid=None) carry explicit point counts; an
         # explicit step overrides them (smoke runs shrink the grid)
@@ -74,7 +72,7 @@ def load_bundles(cfg: PipelineConfig, source="synthetic", seed=0,
             season=cfg.season, domain=cfg.domain, step=step, seed=seed,
             lead=cfg.lead(), grid_shape=gshape)}
     if source == "iridl":
-        from s2s_ismr_tpu.data import gateway
+        from ..data import gateway
         out = {}
         for m in cfg.models:
             x, y = gateway.get_data(

@@ -20,15 +20,15 @@ import pytest
 import torch
 
 import test_elr_edge_cases as oracle
-from s2s_ismr_tpu import timeutils
-from s2s_ismr_tpu.data import synthetic
-from s2s_ismr_tpu.grid import Domain
 from s2s_ismr_tpu.ops import elr as jelr
 from s2s_ismr_tpu.ops import terciles as jterc
-from s2s_ismr_tpu.train import splits
+from s2s_ismr_tpu_torch import timeutils
+from s2s_ismr_tpu_torch.data import synthetic
+from s2s_ismr_tpu_torch.grid import Domain
 from s2s_ismr_tpu_torch.ops import elr as telr
 from s2s_ismr_tpu_torch.ops import metrics as tmetrics
 from s2s_ismr_tpu_torch.ops import terciles as tterc
+from s2s_ismr_tpu_torch.train import splits
 from test_elr import _design, _ref_logit_fit
 
 # The suite runs in several xdist worker processes on few cores: share the

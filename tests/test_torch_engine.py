@@ -15,17 +15,17 @@ import optax
 import pytest
 import torch
 
-from s2s_ismr_tpu import timeutils
-from s2s_ismr_tpu.data import synthetic
-from s2s_ismr_tpu.grid import Domain
 from s2s_ismr_tpu.models import UNet as JaxUNet
 from s2s_ismr_tpu.models import UNetConfig as JaxUNetConfig
 from s2s_ismr_tpu.ops import terciles
 from s2s_ismr_tpu.train import engine as jengine
-from s2s_ismr_tpu.train import splits
+from s2s_ismr_tpu_torch import timeutils
+from s2s_ismr_tpu_torch.data import synthetic
+from s2s_ismr_tpu_torch.grid import Domain
 from s2s_ismr_tpu_torch.models import UNet, UNetConfig
 from s2s_ismr_tpu_torch.models.convert import from_flax, load_flax
 from s2s_ismr_tpu_torch.train import engine as tengine
+from s2s_ismr_tpu_torch.train import splits
 from s2s_ismr_tpu_torch.train.losses import categorical_crossentropy
 
 SMALL = dict(filters=1, n_blocks=2)

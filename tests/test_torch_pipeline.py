@@ -21,12 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from s2s_ismr_tpu.data import gateway
-from s2s_ismr_tpu.io import read_netcdf
+from s2s_ismr_tpu.data import gateway as jgateway
 from s2s_ismr_tpu.models import UNetConfig as JaxUNetConfig
 from s2s_ismr_tpu.pipelines import configs as jconfigs
 from s2s_ismr_tpu.pipelines import tune as jtune
 from s2s_ismr_tpu.train import checkpoint as jcheckpoint
+from s2s_ismr_tpu_torch.data import gateway as tgateway
+from s2s_ismr_tpu_torch.data import synthetic
+from s2s_ismr_tpu_torch.io import read_netcdf
 from s2s_ismr_tpu_torch.ops import elr as telr
 from s2s_ismr_tpu_torch.pipelines import configs as tconfigs
 from s2s_ismr_tpu_torch.pipelines import tune as ttune
@@ -142,9 +144,9 @@ def test_settings_fingerprint_matches_jax():
 
 
 def test_iridl_source_through_a_fake_gateway(monkeypatch):
-    """load_bundles(source='iridl') calls the shared gateway per model and
-    aligns MME time axes at the midpoint (tune_MME.py:66-81), as JAX."""
-    from s2s_ismr_tpu.data import synthetic
+    """load_bundles(source='iridl') calls the port's gateway per model and
+    aligns MME time axes at the midpoint (tune_MME.py:66-81), as JAX does
+    through its own gateway."""
     calls = []
 
     def fake_get_data(**kw):
@@ -154,7 +156,8 @@ def test_iridl_source_through_a_fake_gateway(monkeypatch):
             lead=kw["custom_lead"], seed=len(calls))
         return b.x_field(), b.y_field()
 
-    monkeypatch.setattr(gateway, "get_data", fake_get_data)
+    monkeypatch.setattr(tgateway, "get_data", fake_get_data)
+    monkeypatch.setattr(jgateway, "get_data", fake_get_data)
     cfg = tconfigs.get_config("tune_2MME")
     got = ttune.load_bundles(cfg, source="iridl")
     t_calls, calls[:] = list(calls), []

@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from s2s_ismr_tpu import timeutils
-from s2s_ismr_tpu.data import synthetic
-from s2s_ismr_tpu.grid import Domain
 from s2s_ismr_tpu.ops import quantiles as jq
 from s2s_ismr_tpu.ops import terciles as jt
+from s2s_ismr_tpu_torch import timeutils
+from s2s_ismr_tpu_torch.data import synthetic
+from s2s_ismr_tpu_torch.grid import Domain
 from s2s_ismr_tpu_torch.ops import quantiles as tq
 from s2s_ismr_tpu_torch.ops import terciles as tt
 
