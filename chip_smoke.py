@@ -10,14 +10,16 @@ line is printed:
      tile table and K chunk must equal the library's);
   3. kernel vs plain: the conv3x3 kernel against its plain PyTorch version
      run in float64 (TF32 off everywhere) at every conv shape of the
-     tune_ECMWF_com U-Nets (filters 2 and 3, n_blocks 3, 32x32, batch 16)
-     and at the edge shapes, both acts, rtol 1e-4 / atol 1e-5 (f32, sum
-     order only): the forward, dx / dw / db through the autograd backward,
-     and the dx mode itself (dx and g'), every launch twice and bit-equal;
-     then, at each slice shape, the device time of the kernel and of
-     cuDNN's F.conv2d in turns, and of the plain version, for the forward
-     and the dx mode, beside the bound and the kernel's share of it (FLOP
-     at the float32 rate, and beside it at the 3xTF32 rate);
+     tune_ECMWF_com U-Nets (filters 2 and 3, n_blocks 3, 32x32, batch 16),
+     of the CNN (num_filters 16, act 'none') and of the U-Net's first conv
+     under multi_predictor (C = 11 and 24 members), and at the edge shapes,
+     rtol 1e-4 / atol 1e-5 (f32, sum order only): the forward, dx / dw / db
+     through the autograd backward, and the dx mode itself (dx and g'),
+     every launch twice and bit-equal; then, at each of these shapes, the
+     device time of the kernel and of cuDNN's F.conv2d in turns, and of the
+     plain version, for the forward and the dx mode, beside the bound and
+     the kernel's share of it (FLOP at the float32 rate, and beside it at
+     the 3xTF32 rate);
   4. main path: the NN branch of tune_ECMWF_com (fast variant: 2 folds,
      2 trials, up to 6 epochs) on the synthetic 32x32 grid, T = 349; checks
      finite val losses and RPSS, and that the kernel was launched exactly as
@@ -30,14 +32,24 @@ line is printed:
      ELR and U-Net test RPSS finite on land in every fold, the launch count
      against the executed steps, and that each fold's winner reloaded from
      disk reproduces the sweep's predictions bit for bit;
-  6. the ELR branch of the full tune_ECMWF_com and tune_2MME (10 folds) on
+  6. the other run modes on cuda, in-process, each with its own --out:
+     the CLI's `--training-type train` then `load` on the same out (the
+     load's predictions bit-equal to the train run's), `--output
+     deterministic`, `--predictor multi_predictor`, `--predictor stacked
+     --epochs 2` (11 x 349 rows: the winner forward runs in two row
+     chunks), and run_pipeline of the cnn and the mlp; for each, the exit
+     code, the outputs tree, test RPSS finite on land in every fold, the
+     kernel launches against what the executed steps, epochs and forwards
+     imply (the mlp: none), wall time and steps/s; then the kernel's
+     forward against float64 at those runs' other batch sizes;
+  7. the ELR branch of the full tune_ECMWF_com and tune_2MME (10 folds) on
      cuda and on the CPU: NaN pattern identical, probabilities within 1e-4,
      test-RPSS means within 1e-5 (the TPU v5e means of
-     expected/suite_rpss_v5e.json are printed beside, not compared);
-  7. checks that neither jax nor any module of the JAX package
+     expected/suite_rpss_v5e.json are printed beside, not compared); then
+     checks that neither jax nor any module of the JAX package
      (s2s_ismr_tpu) was loaded; the kernels JSON line (launches summed over
-     phases 4 and 5; times and bounds summed over the slice shapes, the
-     forward under ms / plain_ms / library_ms / bound_ms /
+     phases 4, 5 and 6; times and bounds summed over the shapes of phase
+     3, the forward under ms / plain_ms / library_ms / bound_ms /
      bound_3xtf32_ms, the dx mode under dx_*), the card line, then the
      result line {"ok": true, ...}.
 """
@@ -52,6 +64,14 @@ import tempfile
 import time
 
 BATCH = 16
+# shapes (N, H, W, C, O) the slice's other modes add, with their act: the
+# CNN (num_filters 16) and the U-Net's first conv with the members as
+# channels (11 for ECMWF and GEFS, 24 for IITM; (16, 32, 32, 24, 12) is
+# already a slice shape, up1_conv1 at filters 3)
+CNN_SHAPES = ((16, 32, 32, 1, 16), (16, 32, 32, 16, 32),
+              (16, 32, 32, 32, 64), (16, 32, 32, 64, 3))
+MULTI_SHAPES = ((16, 32, 32, 11, 8), (16, 32, 32, 11, 12),
+                (16, 32, 32, 24, 8))
 
 
 class SmokeFailure(Exception):
@@ -143,14 +163,14 @@ def kernel_vs_plain(torch, conv, shapes, backward=True,
     return max_abs
 
 
-def kernel_times(torch, conv, shapes):
-    """Device time per launch at each slice shape, by torch.profiler, of the
+def kernel_times(torch, conv, shapes, act="elu"):
+    """Device time per launch at each shape, by torch.profiler, of the
     kernel and of cuDNN's F.conv2d (the library yardstick, TF32 off), in
     turns (kernel, cuDNN, kernel, cuDNN), and of the plain version once:
-    the forward (bias + ELU) and the dx mode (ELU: dx and g'). cuDNN's dx
-    is one F.conv2d of g with the adjoint taps made beforehand, so it does
-    less than the kernel (no ELU', no g'). Returns the sums over the
-    shapes, in ms, with the bound summed the same way."""
+    the forward (bias + act) and the dx mode (for ELU: dx and g'). cuDNN's
+    dx is one F.conv2d of g with the adjoint taps made beforehand, so for
+    ELU it does less than the kernel (no ELU', no g'). Returns the sums
+    over the shapes, in ms, with the bound summed the same way."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
     keys = ("ms", "library_ms", "plain_ms", "bound_ms", "ops_ms",
@@ -159,19 +179,20 @@ def kernel_times(torch, conv, shapes):
     sums = {m: dict.fromkeys(keys, 0.0) for m in ("fwd", "dx")}
     for shape in shapes:
         x, k, b, g = bench.inputs(torch, shape, gen)
+        elu = act == "elu"
         with torch.no_grad():
-            out = conv.conv3x3_bias_act(x, k, b, "elu")
+            out = conv.conv3x3_bias_act(x, k, b, act)
             x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
             k_oihw = k.permute(3, 2, 0, 1).contiguous()
             k_adj = k.flip((0, 1)).transpose(2, 3).permute(3, 2, 0, 1) \
                 .contiguous()
             calls = {
-                "fwd": (lambda: conv.conv3x3_bias_act(x, k, b, "elu"),
+                "fwd": (lambda: conv.conv3x3_bias_act(x, k, b, act),
                         lambda: F.conv2d(x_nchw, k_oihw, b, padding=1),
-                        lambda: conv.conv3x3_bias_act_plain(x, k, b, "elu")),
-                "dx": (lambda: conv._dx_call(g, out, k, "elu"),
+                        lambda: conv.conv3x3_bias_act_plain(x, k, b, act)),
+                "dx": (lambda: conv._dx_call(g, out, k, act),
                        lambda: F.conv2d(g_nchw, k_adj, None, padding=1),
-                       lambda: conv.conv3x3_dx_plain(g, out, k, "elu"))}
+                       lambda: conv.conv3x3_dx_plain(g, out, k, act))}
             parts = []
             for mode, (kern, lib, plain) in calls.items():
                 t = [bench.device_ms(torch, f)
@@ -179,9 +200,10 @@ def kernel_times(torch, conv, shapes):
                 check(None not in t, f"{shape} {mode}: the profiler saw no "
                       f"device time")
                 ms, lib_ms = (t[0] + t[2]) / 2, (t[1] + t[3]) / 2
-                t_ops, t_bytes = bench.bound_parts(shape, mode == "dx")
-                bnd, by = bench.bound(shape, mode == "dx")
-                bnd3, by3 = bench.bound(shape, mode == "dx", flops=tf32x3)
+                t_ops, t_bytes = bench.bound_parts(shape, mode == "dx", elu)
+                bnd, by = bench.bound(shape, mode == "dx", elu)
+                bnd3, by3 = bench.bound(shape, mode == "dx", elu,
+                                        flops=tf32x3)
                 s = sums[mode]
                 for key, v in zip(keys, (ms, lib_ms, t[4], bnd, t_ops,
                                          t_bytes, bnd3)):
@@ -192,7 +214,7 @@ def kernel_times(torch, conv, shapes):
                     f"{t[4] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us "
                     f"({by}), {bnd / ms:.1%} of bound; at 3xTF32 "
                     f"{bnd3 * 1e3:.3f} us ({by3}), {bnd3 / ms:.1%}")
-        print(f"  {str(shape):<22} " + "   ".join(parts))
+        print(f"  {str(shape):<22} {act:<4} " + "   ".join(parts))
     return sums
 
 
@@ -264,16 +286,11 @@ def main_path(torch, conv, card):
     return launches, max_abs
 
 
-def pipeline_path(torch, conv, card):
-    """The CLI's whole tune run in-process on cuda; returns the kernel
-    launches of that run."""
-    import numpy as np
-    from s2s_ismr_tpu_torch.io import read_netcdf
+def cli_run(torch, conv, argv):
+    """run.main(argv) in-process with the kernel's launch count set to 0
+    just before; returns (the run's TuneOutputs, wall s, launches)."""
     from s2s_ismr_tpu_torch import run
     from s2s_ismr_tpu_torch.pipelines import tune
-    from s2s_ismr_tpu_torch.train import checkpoint
-    from s2s_ismr_tpu_torch.train.engine import predict
-
     outs = []
     real = tune.run_pipeline
 
@@ -281,54 +298,118 @@ def pipeline_path(torch, conv, card):
         outs.append(real(*args, **kw))
         return outs[-1]
 
+    tune.run_pipeline = recording
+    try:
+        conv.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = run.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = conv.LAUNCHES
+    finally:
+        tune.run_pipeline = real
+    check(rc == 0 and len(outs) == 1, f"run.main({argv}) returned {rc}")
+    return outs[0], seconds, launches
+
+
+def out_dirs(root, cfg):
+    """(outputs dir, models dir) of a single-model run under root."""
+    return (os.path.join(root, "outputs", cfg.out_dir,
+                         f"{cfg.result_name}_{cfg.obs}"),
+            os.path.join(root, "models", cfg.out_dir,
+                         f"{cfg.models[0]}_{cfg.obs}", cfg.week))
+
+
+def check_tree(root, out, suffix):
+    """The run's outputs under root are the JAX CLI's tree, file by file:
+    the RPSS netcdfs, best_hparams and profile, and the winners manifest
+    with best_model_{arch}_{fold}_{suffix}.pt."""
+    cfg, wk, arch = out.config, out.config.week, out.config.architecture
+    odir, mdir = out_dirs(root, cfg)
+    want = ([os.path.join(odir, f"ELR_rpss_{t}_{wk}.nc")
+             for t in ("train", "test")]
+            + [os.path.join(odir, f"{arch}_rpss_{t}_{wk}.nc")
+               for t in ("train", "val", "test")]
+            + [os.path.join(odir, f"{s}_{wk}.json")
+               for s in ("best_hparams", "profile")]
+            + [os.path.join(mdir, f"winners_{wk}.json")]
+            + [os.path.join(mdir, f"best_model_{arch}_{i}_{suffix}.pt")
+               for i in range(out.nn.masks.n_folds)])
+    found = sorted(os.path.join(r, f) for r, _, fs in os.walk(root)
+                   for f in fs)
+    check(found == sorted(want), f"outputs: missing "
+          f"{sorted(set(want) - set(found))}, unexpected "
+          f"{sorted(set(found) - set(want))}")
+    return len(found)
+
+
+def check_rpss(root, out, land, tags=None):
+    """Each test RPSS netcdf equals the run's map and is finite on land in
+    every fold; returns the per-fold means on land."""
+    import numpy as np
+    from s2s_ismr_tpu_torch.io import read_netcdf
+    cfg, wk = out.config, out.config.week
+    odir, _ = out_dirs(root, cfg)
+    means = {}
+    for tag, fld in (tags or {cfg.architecture: out.nn.rpss_test}).items():
+        back = read_netcdf(os.path.join(odir, f"{tag}_rpss_test_{wk}.nc"))
+        check(np.array_equal(back.values, fld.values, equal_nan=True),
+              f"{tag} test RPSS netcdf differs from the run's map")
+        n_folds = out.nn.masks.n_folds
+        check(back.values.shape == (n_folds,) + land.shape
+              and np.isfinite(back.values[:, land]).all(),
+              f"{tag} test RPSS not finite on land in every fold")
+        means[tag] = back.values[:, land].mean(1).tolist()
+    return means
+
+
+def expected_launches(torch, out, load=False):
+    """Kernel launches a run implies: per optimizer step the forward and
+    the dx of every kernel conv but the first (its input, the image, needs
+    no gradient); per epoch one val forward over the val rows; per fold one
+    winner forward over all rows (a load runs only these). Eval forwards
+    run in row chunks (engine.row_chunk). Returns (count, its terms)."""
+    from s2s_ismr_tpu_torch.train.engine import row_chunk
+    cfg = out.config
+    n_conv = {"unet": 4 * max(cfg.tuning.n_blocks) + 2, "cnn": 4,
+              "mlp": 0}[cfg.architecture]
+    F, T = out.nn.labels.shape[:2]
+    chunk = row_chunk(torch.empty((1,) + out.nn.labels.shape[2:]))
+    val_rows = int(out.nn.masks.val.sum(1).max())
+    fwd_chunks = -(-T // chunk)
+    count = F * n_conv * fwd_chunks
+    if not load and n_conv:
+        count += (out.nn.train_steps * (2 * n_conv - 1)
+                  + out.nn.epochs_run * n_conv * -(-val_rows // chunk))
+    terms = (f"{out.nn.train_steps} steps, {out.nn.epochs_run} epochs, "
+             f"{F} winner forwards of {T} rows in {fwd_chunks} chunk(s), "
+             f"{n_conv} kernel convs per forward")
+    return count, terms
+
+
+def pipeline_path(torch, conv, card):
+    """The CLI's whole tune run in-process on cuda; returns the kernel
+    launches of that run."""
+    from s2s_ismr_tpu_torch.pipelines import tune
+    from s2s_ismr_tpu_torch.train import checkpoint
+    from s2s_ismr_tpu_torch.train.engine import predict
+
     argv = ["tune_ECMWF_com", "--synthetic", "--fast"]
     with tempfile.TemporaryDirectory() as d:
-        tune.run_pipeline = recording
-        try:
-            conv.LAUNCHES = 0
-            t0 = time.perf_counter()
-            rc = run.main(argv + ["--out", d])
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = conv.LAUNCHES
-        finally:
-            tune.run_pipeline = real
-        check(rc == 0 and len(outs) == 1, f"run.main({argv}) returned {rc}")
-        out = outs[0]
+        out, seconds, launches = cli_run(torch, conv, argv + ["--out", d])
         cfg, wk = out.config, out.config.week
-        odir = os.path.join(d, "outputs", cfg.out_dir,
-                            f"{cfg.result_name}_{cfg.obs}")
-        mdir = os.path.join(d, "models", cfg.out_dir, f"ECMWF_{cfg.obs}", wk)
+        odir, mdir = out_dirs(d, cfg)
         n_folds = out.nn.masks.n_folds
-        want = ([os.path.join(odir, f"ELR_rpss_{t}_{wk}.nc")
-                 for t in ("train", "test")]
-                + [os.path.join(odir, f"unet_rpss_{t}_{wk}.nc")
-                   for t in ("train", "val", "test")]
-                + [os.path.join(odir, f"{s}_{wk}.json")
-                   for s in ("best_hparams", "profile")]
-                + [os.path.join(mdir, f"winners_{wk}.json")]
-                + [os.path.join(mdir, f"best_model_unet_{i}_tuned.pt")
-                   for i in range(n_folds)])
-        missing = [p for p in want if not os.path.isfile(p)]
-        check(not missing, f"missing outputs {missing}")
-        found = sorted(os.path.join(r, f) for r, _, fs in os.walk(d)
-                       for f in fs)
-        check(found == sorted(want), f"unexpected outputs "
-              f"{sorted(set(found) - set(want))}")
-        print(f"  outputs: {len(found)} files, as the JAX CLI writes them")
+        n = check_tree(d, out, "tuned")
+        print(f"  outputs: {n} files, as the JAX CLI writes them")
 
         bundle = tune.load_bundles(cfg)["ECMWF"]
-        land = bundle.valid_pixels()
-        for tag, fld in (("ELR", out.elr.rpss_test),
-                         ("unet", out.nn.rpss_test)):
-            back = read_netcdf(os.path.join(odir, f"{tag}_rpss_test_{wk}.nc"))
-            check(np.array_equal(back.values, fld.values, equal_nan=True),
-                  f"{tag} test RPSS netcdf differs from the run's map")
-            check(back.values.shape == (n_folds, 32, 32)
-                  and np.isfinite(back.values[:, land]).all(),
-                  f"{tag} test RPSS not finite on land in every fold")
-            print(f"  {tag} test RPSS on land per fold "
-                  f"{back.values[:, land].mean(1).tolist()}")
+        means = check_rpss(d, out, bundle.valid_pixels(),
+                           {"ELR": out.elr.rpss_test,
+                            "unet": out.nn.rpss_test})
+        for tag, m in means.items():
+            print(f"  {tag} test RPSS on land per fold {m}")
 
         with open(os.path.join(odir, f"profile_{wk}.json")) as fh:
             prof = json.load(fh)
@@ -337,11 +418,8 @@ def pipeline_path(torch, conv, card):
         check(prof["counters"] == {"train_steps": steps,
                                    "epochs_run": epochs},
               f"profile counters {prof['counters']}")
-        n_conv = 4 * max(cfg.tuning.n_blocks) + 2
-        expected = steps * (2 * n_conv - 1) + epochs * n_conv \
-            + n_folds * n_conv
-        print(f"  kernel launches {launches}, expected {expected} ({steps} "
-              f"steps, {epochs} epochs, {n_folds} winner forwards)")
+        expected, terms = expected_launches(torch, out)
+        print(f"  kernel launches {launches}, expected {expected} ({terms})")
         check(launches == expected, "launch count does not match the steps")
 
         # replay: each fold's winner from disk, the sweep's shapes (all T)
@@ -366,6 +444,105 @@ def pipeline_path(torch, conv, card):
     print(f"  pipeline wall {seconds:.2f} s (stages: data {st['data']} s, "
           f"ELR {st['elr']} s, NN {st['nn']} s; {steps} steps) on {card}")
     return launches
+
+
+def modes_path(torch, conv, card):
+    """The other run modes on cuda, each with its own --out; returns the
+    kernel launches summed over them and the largest error of the kernel's
+    forward against float64 at their other batch sizes."""
+    from dataclasses import replace
+
+    from s2s_ismr_tpu_torch.pipelines import get_config, tune
+
+    base = ["tune_ECMWF_com", "--synthetic", "--fast"]
+    fast = get_config("tune_ECMWF_com").fast_variant()
+    land = tune.load_bundles(fast)["ECMWF"].valid_pixels()
+    total, rows = 0, {}
+
+    def pipeline(cfg, out_root):
+        conv.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tune.run_pipeline(cfg, out_root=out_root, log=lambda s: None,
+                                device="cuda")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, conv.LAUNCHES
+
+    def report(name, root, run, suffix, load=False):
+        nonlocal total
+        out, seconds, launches = run
+        n = check_tree(root, out, suffix)
+        means = check_rpss(root, out, land)
+        expected, terms = expected_launches(torch, out, load)
+        steps = out.nn.train_steps
+        print(f"  {name}: {n} files as the JAX CLI writes them; test RPSS "
+              f"on land per fold {means[out.config.architecture]}; kernel "
+              f"launches {launches}, expected {expected} ({terms}); wall "
+              f"{seconds:.2f} s, {steps} steps = {steps / seconds:.1f} "
+              f"steps/s on {card}")
+        check(launches == expected,
+              f"{name}: launch count does not match the run")
+        total += launches
+        rows[name] = out
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "train")
+        trained = report("--training-type train", d, cli_run(
+            torch, conv, base + ["--training-type", "train", "--out", d]),
+            "trained")
+        loaded = report("--training-type load (same --out)", d, cli_run(
+            torch, conv, base + ["--training-type", "load", "--out", d]),
+            "trained", load=True)
+        check(torch.equal(loaded.nn.predictions, trained.nn.predictions),
+              "the load's predictions differ from the train run's")
+        for split in ("rpss_train", "rpss_val", "rpss_test"):
+            check((getattr(loaded.nn, split).values.tobytes()
+                   == getattr(trained.nn, split).values.tobytes()),
+                  f"the load's {split} differs from the train run's")
+        print("  load: predictions and RPSS maps bit-equal to the train "
+              "run's")
+        for name, extra in (("deterministic", ["--output", "deterministic"]),
+                            ("multi_predictor",
+                             ["--predictor", "multi_predictor"]),
+                            ("stacked", ["--predictor", "stacked",
+                                         "--epochs", "2"])):
+            d = os.path.join(tmp, name)
+            report(" ".join(extra[:2]), d, cli_run(
+                torch, conv, base + extra + ["--out", d]), "tuned")
+        for arch in ("cnn", "mlp"):
+            d = os.path.join(tmp, arch)
+            report(f"run_pipeline {arch}", d, pipeline(
+                replace(fast, architecture=arch), d), "trained")
+
+    # the kernel's forward at these runs' other batch sizes: the stacked
+    # winner forward's two row chunks, and the val rows and all T of the
+    # multi_predictor first conv and of the cnn
+    from s2s_ismr_tpu_torch.train.engine import row_chunk
+    stacked = rows["--predictor stacked"]
+    T2 = stacked.nn.labels.shape[1]
+    chunk = row_chunk(torch.empty(1, 32, 32, 1))
+    check(T2 == 11 * 349 and -(-T2 // chunk) == 2,
+          f"stacked rows {T2}, chunk {chunk}")
+    shapes = [s for n in (chunk, T2 - chunk)
+              for s in bench.slice_shapes(torch, (2,), n)]
+    multi = rows["--predictor multi_predictor"]
+    cnn = rows["run_pipeline cnn"]
+    ns = (int(multi.nn.masks.val.sum(1).max()), multi.nn.labels.shape[1])
+    print(f"  kernel vs plain forward at the stacked chunks {chunk} and "
+          f"{T2 - chunk} (filters 2), and at N = {ns} for the "
+          f"multi_predictor first conv and the cnn")
+    max_abs = kernel_vs_plain(torch, conv, shapes, backward=False,
+                              acts=("elu",))
+    max_abs = max(max_abs, kernel_vs_plain(
+        torch, conv, [(n, 32, 32, 11, 8) for n in ns], backward=False,
+        acts=("elu",)))
+    max_abs = max(max_abs, kernel_vs_plain(
+        torch, conv, [(n,) + s[1:] for n in ns for s in CNN_SHAPES],
+        backward=False, acts=("none",)))
+    check(rows["run_pipeline mlp"].nn.train_steps > 0 and cnn.nn.epochs_run,
+          "the cnn or mlp trained nothing")
+    return total, max_abs
 
 
 def elr_cuda_vs_cpu(torch):
@@ -424,12 +601,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        print("[1/6] device")
+        print("[1/7] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/6] build")
+        print("[2/7] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -443,34 +620,51 @@ def main():
               f"{conv.kernel_chunk()} differ from the wrapper's "
               f"{conv.TILES} / {conv._BK}")
 
-        print("[3/6] kernel vs plain (TF32 off), batch 16")
+        print("[3/7] kernel vs plain (TF32 off), batch 16")
         shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
+        print("  the cnn's shapes (act none) and the multi_predictor first "
+              "convs")
+        max_abs = max(max_abs, kernel_vs_plain(torch, conv, CNN_SHAPES,
+                                               acts=("none",)))
+        max_abs = max(max_abs, kernel_vs_plain(torch, conv, MULTI_SHAPES))
         print("  edge shapes")
         max_abs = max(max_abs, kernel_vs_plain(torch, conv,
                                                bench.EDGE_SHAPES))
-        print(f"  device time per launch at the {len(shapes)} slice shapes "
-              f"(kernel and cuDNN in turns; on {card})")
-        times = kernel_times(torch, conv, shapes)
-        for mode, s in times.items():
-            print(f"  {mode} summed over {len(shapes)} shapes: kernel "
-                  f"{s['ms']:.4f} ms, cuDNN {s['library_ms']:.4f} ms, plain "
-                  f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
-                  f"({s['bound_ms'] / s['ms']:.1%} of it; FLOP "
-                  f"{s['ops_ms']:.4f} ms, bytes {s['bytes_ms']:.4f} ms); "
-                  f"bound at 3xTF32 {s['bound_3xtf32_ms']:.4f} ms "
-                  f"({s['bound_3xtf32_ms'] / s['ms']:.1%} of it)")
+        groups = (("U-Net slice", shapes, "elu"), ("cnn", CNN_SHAPES, "none"),
+                  ("multi_predictor", MULTI_SHAPES, "elu"))
+        times = {m: {} for m in ("fwd", "dx")}
+        for name, group, act in groups:
+            print(f"  device time per launch at the {len(group)} {name} "
+                  f"shapes (kernel and cuDNN in turns; on {card})")
+            for mode, s in kernel_times(torch, conv, group, act).items():
+                print(f"  {name} {mode} summed over {len(group)} shapes: "
+                      f"kernel {s['ms']:.4f} ms, cuDNN "
+                      f"{s['library_ms']:.4f} ms, plain "
+                      f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
+                      f"({s['bound_ms'] / s['ms']:.1%} of it; FLOP "
+                      f"{s['ops_ms']:.4f} ms, bytes {s['bytes_ms']:.4f} ms); "
+                      f"bound at 3xTF32 {s['bound_3xtf32_ms']:.4f} ms "
+                      f"({s['bound_3xtf32_ms'] / s['ms']:.1%} of it)")
+                for key, v in s.items():
+                    times[mode][key] = times[mode].get(key, 0.0) + v
         print(f"  max abs err {max_abs:.3e}")
 
-        print("[4/6] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[4/7] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
-        print("[5/6] main path: `python -m s2s_ismr_tpu_torch.run "
+        print("[5/7] main path: `python -m s2s_ismr_tpu_torch.run "
               "tune_ECMWF_com --synthetic --fast` in-process on cuda")
         launches += pipeline_path(torch, conv, card)
 
-        print("[6/6] ELR branch of the full tune_ECMWF_com and tune_2MME "
+        print("[6/7] the other run modes of tune_ECMWF_com (fast variant) "
+              "in-process on cuda")
+        modes_launches, modes_abs = modes_path(torch, conv, card)
+        launches += modes_launches
+        max_abs = max(max_abs, modes_abs)
+
+        print("[7/7] ELR branch of the full tune_ECMWF_com and tune_2MME "
               "(10 folds), cuda vs CPU")
         elr_cuda_vs_cpu(torch)
         check("jax" not in sys.modules, "jax was imported")

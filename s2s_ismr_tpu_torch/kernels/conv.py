@@ -33,7 +33,7 @@ from . import _build
 LAUNCHES = 0
 MAX_CHANNELS = 384
 _MAX_SIDE = 16384
-_MAX_PIXELS = 2_000_000     # N*H*W: the kernel's fdiv and 32-bit indices
+MAX_PIXELS = 2_000_000      # N*H*W: the kernel's fdiv and 32-bit indices
 _ACTS = ("elu", "none")
 
 # The kernel's tile table (csrc/conv3x3.cu, kTiles): (BM, BN, WM, WN), a
@@ -142,8 +142,8 @@ def _check_sizes(n, h, wd, cin, cout):
                          f"got {cin}, {cout}")
     if h > _MAX_SIDE or wd > _MAX_SIDE:
         raise ValueError(f"conv3x3 kernel takes H, W <= {_MAX_SIDE}")
-    if n * h * wd > _MAX_PIXELS:
-        raise ValueError(f"conv3x3 kernel takes N*H*W <= {_MAX_PIXELS}")
+    if n * h * wd > MAX_PIXELS:
+        raise ValueError(f"conv3x3 kernel takes N*H*W <= {MAX_PIXELS}")
 
 
 def _run(a, act_out, w, b, y, gp, dx_mode, elu, tile):

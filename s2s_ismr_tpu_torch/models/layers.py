@@ -5,11 +5,15 @@ s2s_ismr_tpu/models/layers.py).
   * Conv2DTranspose: gradient-of-conv (TF/Keras) SAME placement
   * BatchNorm: momentum 0.99, epsilon 1e-3, biased batch variance, optional
     per-sample weights for padded batches
-  * FusedConv3x3: conv3x3 + bias + ELU through the hand-written kernel
+  * FusedConv3x3: conv3x3 + bias + ELU (or no activation) through the
+    hand-written kernel
+  * Dense: glorot-uniform (or he-normal) kernel (in, out), zero bias
+  * Dropout: inverted dropout whose mask comes from an explicit generator
 
 Activations are NHWC and conv kernels HWIO (kh, kw, C, O), as in JAX, so
 parameters convert from flax by renaming only (models/convert.py). Every
-parameter is drawn from an explicit torch.Generator.
+parameter and every dropout mask is drawn from an explicit
+torch.Generator, never from the global RNG.
 """
 
 from __future__ import annotations
@@ -32,17 +36,34 @@ def glorot_uniform_(t, generator=None):
         return t.uniform_(-limit, limit, generator=generator)
 
 
-def _hwio(shape, generator, device):
+# flax's variance_scaling truncated normal: a standard normal cut at +-2
+# has this std, so the draw is divided by it to keep the requested variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def he_normal_(t, generator=None):
+    """flax / Keras he_normal for a kernel (..., in, out): a normal cut at
+    +-2 sigma, sigma = sqrt(2 / fan_in) / 0.8796..., fan_in = prod(shape[:-1])
+    (not torch's trunc_normal_ defaults, which cut at +-2 absolute)."""
+    std = math.sqrt(2.0 / math.prod(t.shape[:-1])) / _TRUNC_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+
+
+def _param(shape, init, generator, device):
     t = torch.empty(shape, dtype=torch.float32)
-    return nn.Parameter(glorot_uniform_(t, generator).to(device))
+    return nn.Parameter(init(t, generator).to(device))
 
 
 class KernelBias(nn.Module):
-    """The `kernel`/`bias` pair of a conv, in flax's nested `conv` scope."""
+    """The `kernel`/`bias` pair of a conv or a dense layer, in flax's nested
+    `conv` / `dense` scope."""
 
-    def __init__(self, shape, generator=None, device=None):
+    def __init__(self, shape, generator=None, device=None,
+                 init=glorot_uniform_):
         super().__init__()
-        self.kernel = _hwio(shape, generator, device)
+        self.kernel = _param(shape, init, generator, device)
         self.bias = nn.Parameter(torch.zeros(shape[-1], device=device))
 
 
@@ -80,8 +101,8 @@ class Conv2DTranspose(nn.Module):
         self.strides = tuple(strides)
         self.padding = tuple((k - s) // 2
                              for k, s in zip(kernel_size, strides))
-        self.kernel = _hwio((*kernel_size, features, in_features), generator,
-                            device)
+        self.kernel = _param((*kernel_size, features, in_features),
+                             glorot_uniform_, generator, device)
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def forward(self, x):
@@ -137,18 +158,71 @@ class BatchNorm(nn.Module):
 
 
 class FusedConv3x3(nn.Module):
-    """conv3x3(SAME) + bias + ELU through the hand-written kernel
-    (kernels/conv.py); the counterpart of JAX's PallasConv3x3. Its
+    """conv3x3(SAME) + bias + act ('elu' or 'none') through the hand-written
+    kernel (kernels/conv.py); the counterpart of JAX's PallasConv3x3. Its
     parameters are Conv2D's (`conv.kernel`, `conv.bias`), so checkpoints
     interchange between the 'kernel' and 'torch' backends."""
 
-    def __init__(self, in_features, features, generator=None, device=None):
+    def __init__(self, in_features, features, generator=None, device=None,
+                 act="elu"):
         super().__init__()
+        self.act = act
         self.conv = KernelBias((3, 3, in_features, features), generator,
                                device)
 
     def forward(self, x):
-        return conv3x3_bias_act(x, self.conv.kernel, self.conv.bias, "elu")
+        return conv3x3_bias_act(x, self.conv.kernel, self.conv.bias,
+                                self.act)
+
+
+def conv_backend(name):
+    """'auto' | 'kernel' | 'torch' -> 'kernel' | 'torch'. 'auto' is the
+    hand-written kernel, unlike JAX where 'auto' meant XLA's conv (a TPU
+    v5e measurement); on the H100 the kernel path takes less device time
+    per step than cuDNN but more host time (PERF.md)."""
+    if name not in ("auto", "kernel", "torch"):
+        raise ValueError(f"conv_backend={name!r}")
+    return "kernel" if name == "auto" else name
+
+
+class Dense(nn.Module):
+    """Keras-default Dense, x (..., in) -> (..., out): kernel (in, out)
+    from `init` (glorot-uniform by default), zero bias, in flax's nested
+    `dense` scope (`dense.kernel`, `dense.bias`)."""
+
+    def __init__(self, in_features, features, init=glorot_uniform_,
+                 generator=None, device=None):
+        super().__init__()
+        self.dense = KernelBias((in_features, features), generator, device,
+                                init=init)
+
+    def forward(self, x):
+        return torch.matmul(x, self.dense.kernel) + self.dense.bias
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (flax nn.Dropout): in training each element is kept
+    with probability 1 - rate and scaled by 1 / (1 - rate), else zeroed.
+    The mask is drawn from `generator`, a torch.Generator on x's device
+    (F.dropout and nn.Dropout draw from the global RNG). In eval mode, or
+    at rate 0, x passes through and nothing is drawn."""
+
+    def __init__(self, rate):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.rate = rate
+
+    def forward(self, x, train: bool, generator: torch.Generator | None):
+        if not train or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("Dropout in training needs an explicit "
+                             "torch.Generator on the activations' device")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=x.dtype) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def _even(x):

@@ -22,8 +22,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .layers import (BatchNorm, Conv2D, Conv2DTranspose, FusedConv3x3,
-                     avg_pool2, elu, max_pool2)
+from .layers import (BatchNorm, Conv2D, Conv2DTranspose, Dropout,
+                     FusedConv3x3, avg_pool2, conv_backend, elu, max_pool2)
 
 
 @dataclass(frozen=True)
@@ -46,13 +46,7 @@ class UNetConfig:
         return self.filters * 4 * (2 ** (k - 1))
 
     def resolved_backend(self):
-        # 'auto' is the hand-written kernel, unlike JAX where 'auto' meant
-        # XLA's conv (a TPU v5e measurement). On the H100 the kernel path
-        # takes less device time per step than cuDNN but more host time
-        # (PERF.md); the bench decides the default once it exists.
-        if self.conv_backend not in ("auto", "kernel", "torch"):
-            raise ValueError(f"conv_backend={self.conv_backend!r}")
-        return "kernel" if self.conv_backend == "auto" else self.conv_backend
+        return conv_backend(self.conv_backend)
 
 
 class _ConvELU(Conv2D):
@@ -67,10 +61,6 @@ class UNet(nn.Module):
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         cfg = self.config = config
-        if cfg.dropout_rate > 0:
-            raise NotImplementedError(
-                "dropout is ported with the cnn/mlp models (ROADMAP queue A "
-                "item 13)")
         if cfg.compute_dtype not in ("auto", "float32"):
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r}: the port computes in "
@@ -78,6 +68,7 @@ class UNet(nn.Module):
                 "queue B)")
         use_kernel = cfg.resolved_backend() == "kernel"
         kw = dict(generator=generator, device=device)
+        self.dropout = Dropout(cfg.dropout_rate)
 
         def conv_elu(name, c_in, c_out):
             mod = (FusedConv3x3(c_in, c_out, **kw) if use_kernel
@@ -113,11 +104,14 @@ class UNet(nn.Module):
         self.head = Conv2D(c, n_out, (1, 1), **kw)
 
     def forward(self, x, train: bool = False, sample_weight=None,
+                dropout_generator: torch.Generator | None = None,
                 bottleneck_delta=None, intermediates: dict | None = None):
         """x (N, H, W, C) -> (N, H, W, n_bins) probabilities (or (N, H, W,
-        1) for the deterministic head). bottleneck_delta is the GradCAM tap
-        added to the bottleneck activations; `intermediates`, when given,
-        receives them under 'bottleneck'."""
+        1) for the deterministic head). In training, dropout (after conv1
+        of every encoder and decoder block) draws its masks from
+        `dropout_generator`, a generator on x's device. bottleneck_delta is
+        the GradCAM tap added to the bottleneck activations;
+        `intermediates`, when given, receives them under 'bottleneck'."""
         cfg = self.config
         pool = avg_pool2 if cfg.apool else max_pool2
 
@@ -131,6 +125,7 @@ class UNet(nn.Module):
         h = x
         for k in range(1, cfg.n_blocks + 1):
             c = getattr(self, f"down{k}_conv1")(h)
+            c = self.dropout(c, train, dropout_generator)
             c = getattr(self, f"down{k}_conv2")(c)
             c = bn(c, f"down{k}_bn")
             skips.append(c)
@@ -148,6 +143,7 @@ class UNet(nn.Module):
             u = getattr(self, f"up{k}_convT")(h)
             u = torch.cat([skips[k - 1], u], dim=-1)
             u = getattr(self, f"up{k}_conv1")(u)
+            u = self.dropout(u, train, dropout_generator)
             u = getattr(self, f"up{k}_conv2")(u)
             h = bn(u, f"up{k}_bn") if k > 1 else u
 

@@ -7,10 +7,13 @@ grid-search tuning, RPSS netcdfs) -> skill mask -> checkpoints. MME configs
 blend per-model tercile probabilities and renormalize (training.py:344-350,
 622-626).
 
-Every entry point takes `device=`; tensors live there from labeling to
-RPSS, and the host moves data in and writes the outputs tree of the JAX
-CLI. The U-Net / `tune` / `proba` / `mean`-predictor path is ported; the
-other branches raise NotImplementedError naming their ROADMAP item.
+Every entry point takes `device=` (None: the card, never a fallback to the
+CPU); tensors live there from labeling to RPSS, and the host moves data in
+and writes the outputs tree of the JAX CLI. The NN branch runs the U-Net
+sweep (`training_type='tune'`), the fixed training of one configuration
+(cnn/mlp, and `'train'` for any architecture) or the replay of saved
+winners (`'load'`), with the proba or deterministic head and the mean,
+multi_predictor or stacked predictor.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import device as devices
 from .. import timeutils
 from ..data.bundle import DataBundle
 from ..field import Field
@@ -33,12 +37,13 @@ from ..ops import elr as elr_ops
 from ..ops import metrics, terciles
 from ..profiling import StageTimer
 from ..train import checkpoint, splits
-from ..train.sweep import SweepResult, TuningGrid, run_unet_sweep
+from ..models import UNetConfig
+from ..train.engine import predict
+from ..train.sweep import (SweepResult, TuningGrid, enumerate_trials,
+                           run_fixed_training, run_unet_sweep)
 from .configs import PipelineConfig
 
 _LATER = {
-    "flags": "the cnn/mlp models and the remaining flag surface (ROADMAP "
-             "queue A item 13)",
     "plots": "the reporting slice (ROADMAP queue A item 15)",
     "profile": "the torch.profiler port of profiling.py (ROADMAP queue A "
                "item 16)",
@@ -145,10 +150,12 @@ def _elr_fit_folds(y, weeks, train_masks, wm):
 
 
 def run_elr_branch(cfg: PipelineConfig, bundles, log=print,
-                   device="cpu") -> ElrResult:
-    """The ELR baseline of a tune run on `device`: year-bootstrap splits,
-    per-fold labels, the pixel-parallel GLM of every model (blended for
-    MME), and RPSS maps (train / test) per fold."""
+                   device=None) -> ElrResult:
+    """The ELR baseline of a tune run on `device` (None: the card):
+    year-bootstrap splits, per-fold labels, the pixel-parallel GLM of
+    every model (blended for MME), and RPSS maps (train / test) per
+    fold."""
+    device = devices.resolve(device)
     names = list(bundles)
     first = bundles[names[0]]
     y_shared = np.mean(np.stack([bundles[n].y for n in names]), axis=0) \
@@ -189,20 +196,36 @@ class NNResult:
     masks: splits.FoldMasks
     sweeps: Dict[str, SweepResult]
     best_hparams: list
+    fixed_winners: Dict[str, tuple] = field(default_factory=dict)
+    # per model: (state_dicts, val losses (F,), UNetConfig | None) of a
+    # fixed (non-grid) training: cnn/mlp, and unet training_type='train'
+    train_steps: int = 0            # optimizer steps executed, all models
+    epochs_run: int = 0             # epochs executed, summed over lanes
 
 
-def _nn_setup(cfg: PipelineConfig, bundles, log, device="cpu"):
-    """NN-branch preamble: fillna, year-bootstrap splits, per-fold rolling
-    tercile labels fit on each fold's train years only
-    (preprocessing.py:415), on the cross-model mean obs for MME.
+def _nn_setup(cfg: PipelineConfig, bundles, log, device=None):
+    """NN-branch preamble: fillna (and the stacked predictor's member
+    tiling), year-bootstrap splits, per-fold rolling tercile labels fit on
+    each fold's train years only (preprocessing.py:415), on the
+    cross-model mean obs for MME.
 
     Returns (names, filled, first, fold masks, labels (F,T,Y,X) numpy,
     one-hot (F,T,Y,X,3) tensor with NaN -> 0, (edges, present) per fold).
     """
+    device = devices.resolve(device)
     names = list(bundles)
-    if cfg.predictor != "mean":
-        raise _later(f"predictor={cfg.predictor!r}", "flags")
     filled = {n: b.fillna(0.0) for n, b in bundles.items()}
+    if cfg.predictor == "stacked" and cfg.is_mme:
+        raise ValueError(
+            "predictor='stacked' is not supported for MME configs: each "
+            "model tiles T by its own member count, so the cross-model "
+            "obs mean is undefined (no reference script combines them "
+            "either, training.py:146-238 vs tune_MME.py)")
+    if cfg.predictor == "stacked":
+        # members become extra batch rows; labels, splits and metrics all
+        # run on the tiled M*T axis (preprocessing.py:29-35,
+        # training.py:146-238)
+        filled = {n: b.stacked() for n, b in filled.items()}
     first = filled[names[0]]
     y_shared = np.mean(np.stack([filled[n].y for n in names]), axis=0) \
         if cfg.is_mme else first.y
@@ -237,57 +260,233 @@ def resolve_batch_sizes(grid: TuningGrid, T: int) -> TuningGrid:
     return replace(grid, batch_sizes=tuple(seen))
 
 
-def run_nn_branch(cfg: PipelineConfig, bundles, log=print, timer=None,
-                  training_type="tune", device="cpu") -> NNResult:
-    """The NN branch of a tune run on `device`: splits, labels, the U-Net
-    sweep of every model (blended for MME) and RPSS maps (train / val /
-    test) per fold. `timer` (a StageTimer) counts the optimizer steps."""
-    if cfg.architecture != "unet":
-        raise _later(f"architecture={cfg.architecture!r}", "flags")
-    if cfg.output != "proba":
-        raise _later(f"output={cfg.output!r}", "flags")
-    if training_type != "tune":
-        raise _later(f"training_type={training_type!r}", "flags")
-    names, filled, first, fm, labels, y_oh, _ = \
-        _nn_setup(cfg, bundles, log, device)
+def _deterministic_to_probs(preds, weeks, edges_pr):
+    """Categorize deterministic precip predictions (F, T, H, W, 1) with
+    each fold's rolling tercile edges, yielding one-hot (F, T, H, W, 3)
+    'probabilities' (NaN where the label is), so deterministic runs score
+    through the same RPSS/MME path as the proba head. (The reference's
+    deterministic head, deep_nn_models.py:104-105, dead-ends before any
+    scoring.)"""
+    edges, present = edges_pr
+    return terciles.one_hot_labels(torch.stack([
+        terciles.label_terciles(p[..., 0], weeks, e, pr)
+        for p, e, pr in zip(preds, edges, present)]))
 
-    sweeps: Dict[str, SweepResult] = {}
-    per_model_preds = []
-    for n in names:
-        x = filled[n].predictor_images(cfg.predictor)
-        try:
-            check_divisible(x.shape[1], x.shape[2], max(cfg.tuning.n_blocks))
-        except ValueError as e:
-            raise ValueError(f"model {n}: {e} — choose a domain/step that "
-                             f"yields a divisible grid or pad via "
-                             f"DataBundle.pad_to_grid") from None
-        t0 = time.time()
-        grid_n = resolve_batch_sizes(cfg.tuning, int(x.shape[0]))
-        res = run_unet_sweep(x, y_oh, fm.train, fm.val, grid_n,
-                             epochs=cfg.epochs, device=device)
-        log(f"[nn] model {n}: sweep of {res.val_loss_table.shape[1]} trials "
-            f"x {fm.n_folds} folds in {time.time() - t0:.1f}s "
-            f"{res.timings}; winners={[t.hparams() for t in res.best_trial]}")
-        sweeps[n] = res
-        per_model_preds.append(res.predictions)
-        if timer is not None:
-            timer.count("train_steps", res.train_steps)
-            timer.count("epochs_run", res.epochs_run)
+
+def _make_architecture(arch: str, x_shape, device=None):
+    """factory(generator) of the cnn or mlp for predictor images of
+    x_shape (T, H, W, C)."""
+    if arch not in ("cnn", "mlp"):
+        raise ValueError(f"unknown architecture {arch!r}")
+    return checkpoint.model_factory(arch, (1, *x_shape[1:]), device=device)
+
+
+def _unet_from_grid(cfg: PipelineConfig, in_channels=1, device=None):
+    """The training_type='train' U-Net: a SINGLE configuration, the first
+    tuning-grid entry, standing in for the reference's
+    architecture_params dict (training.py:54-60,119-125; the scripts set
+    architecture_params from the same values their grids lead with).
+    Returns (factory(generator), UNetConfig)."""
+    t0 = enumerate_trials(cfg.tuning)[0]
+    ucfg = UNetConfig(filters=t0.filters, n_blocks=t0.n_blocks,
+                      ct_kernel=t0.ct_kernel, output=cfg.output)
+    return checkpoint.model_factory("unet", (1, 1, 1, in_channels), ucfg,
+                                    device), ucfg
+
+
+def _nn_result(cfg, filled, names, first, fm, labels, per_model_preds,
+               device, **kw) -> NNResult:
+    """Blend (MME), then RPSS (train / val / test) per fold vs the
+    constant-1/3 climatology of the last-iterated model's predictor
+    (performance_metrics.py:11-23)."""
     preds = (elr_ops.blend_probabilities(per_model_preds) if cfg.is_mme
              else per_model_preds[0])
-
-    # RPSS vs the constant-1/3 climatology of the last-iterated model's
-    # predictor (performance_metrics.py:11-23)
     climo = metrics.climo_forecast(
         torch.as_tensor(filled[names[-1]].ensemble_mean(), device=device))
     fld = _rpss_fields(climo, preds, labels,
                        {"Y": first.lats, "X": first.lons})
-    return NNResult(
-        rpss_train=fld(fm.train), rpss_val=fld(fm.val),
-        rpss_test=fld(fm.test),
-        predictions=preds, labels=labels, masks=fm, sweeps=sweeps,
-        best_hparams=[{n: sweeps[n].best_trial[f].hparams() for n in names}
-                      for f in range(fm.n_folds)])
+    return NNResult(rpss_train=fld(fm.train), rpss_val=fld(fm.val),
+                    rpss_test=fld(fm.test), predictions=preds,
+                    labels=labels, masks=fm, **kw)
+
+
+def run_nn_branch(cfg: PipelineConfig, bundles, log=print, timer=None,
+                  training_type="tune", device=None) -> NNResult:
+    """The NN branch of a tune run on `device` (None: the card): splits,
+    labels, then for every model (blended for MME) the U-Net sweep
+    (training_type 'tune') or the fixed training of one configuration
+    (cnn/mlp, or 'train'), and RPSS maps (train / val / test) per fold.
+    `timer` (a StageTimer) counts the optimizer steps."""
+    device = devices.resolve(device)
+    names, filled, first, fm, labels, y_oh, edges_pr = \
+        _nn_setup(cfg, bundles, log, device)
+    det = cfg.output == "deterministic"
+    if det and cfg.architecture != "unet":
+        raise ValueError(
+            "output='deterministic' is only available for the U-Net "
+            "(deep_nn_models.py:104-105); cnn/mlp have softmax heads")
+    if det and cfg.predictor == "stacked":
+        raise ValueError(
+            "output='deterministic' does not compose with "
+            "predictor='stacked': stacking tiles the batch axis by member "
+            "count while the regression target keeps the raw T axis")
+    y_tgt = y_oh
+    if det:
+        # deterministic head (deep_nn_models.py:104-105): regress RAW
+        # precipitation from the un-filled bundles, so the ocean stays NaN
+        # and masked_mse excludes it (a fillna(0) target would train the
+        # model on ocean zeros). Fold-independent, broadcast per fold.
+        y_raw = (np.nanmean(np.stack([bundles[m].y for m in names]), 0)
+                 if cfg.is_mme else bundles[names[0]].y)
+        y_tgt = torch.as_tensor(y_raw, device=device)[None, ..., None] \
+            .expand((fm.n_folds,) + y_raw.shape + (1,))
+
+    sweeps: Dict[str, SweepResult] = {}
+    hparams_by_model: Dict[str, list] = {}
+    fixed_winners: Dict[str, tuple] = {}
+    per_model_preds = []
+    steps = epochs = 0
+    for n in names:
+        x = filled[n].predictor_images(cfg.predictor)
+        if cfg.architecture == "unet":
+            try:
+                check_divisible(x.shape[1], x.shape[2],
+                                max(cfg.tuning.n_blocks))
+            except ValueError as e:
+                raise ValueError(f"model {n}: {e} — choose a domain/step "
+                                 f"that yields a divisible grid or pad via "
+                                 f"DataBundle.pad_to_grid") from None
+        t0 = time.time()
+        grid_n = resolve_batch_sizes(cfg.tuning, int(x.shape[0]))
+        if cfg.architecture == "unet" and training_type == "tune":
+            res = run_unet_sweep(x, y_tgt, fm.train, fm.val, grid_n,
+                                 epochs=cfg.epochs, output=cfg.output,
+                                 device=device)
+            if det:
+                res = replace(res, predictions=_deterministic_to_probs(
+                    res.predictions, filled[n].weeks, edges_pr))
+            log(f"[nn] model {n}: sweep of {res.val_loss_table.shape[1]} "
+                f"trials x {fm.n_folds} folds in {time.time() - t0:.1f}s "
+                f"{res.timings}; "
+                f"winners={[t.hparams() for t in res.best_trial]}")
+            sweeps[n] = res
+            preds_n = res.predictions
+            hparams_by_model[n] = [t.hparams() for t in res.best_trial]
+            n_steps, n_epochs, counted = (res.train_steps, res.epochs_run,
+                                          res.train_steps)
+        else:
+            # fixed single-configuration training, one lane per fold: the
+            # cnn/mlp branch (training.py:53-64; the reference's tuning
+            # loop only ever rebuilds the U-Net) and training_type='train'
+            # for any architecture (training.py:119-125: the first grid
+            # entry, no EarlyStopping, the best-val weights of all epochs)
+            if cfg.architecture == "unet":
+                factory, ucfg = _unet_from_grid(cfg, x.shape[-1], device)
+            else:
+                factory = _make_architecture(cfg.architecture, x.shape,
+                                             device)
+                ucfg = None
+            lr, bs = grid_n.learning_rates[0], grid_n.batch_sizes[0]
+            fr = run_fixed_training(
+                factory, x, y_tgt, fm.train, fm.val, lr=lr, batch_size=bs,
+                epochs=cfg.epochs, patience=grid_n.patience,
+                early_exit=(training_type != "train"), output=cfg.output,
+                device=device)
+            preds_n = fr.predictions
+            if det:
+                preds_n = _deterministic_to_probs(preds_n, filled[n].weeks,
+                                                  edges_pr)
+            fixed_winners[n] = (fr.winner_variables, fr.val_loss, ucfg)
+            log(f"[nn] model {n}: {cfg.architecture} ({training_type}) x "
+                f"{fm.n_folds} folds in {time.time() - t0:.1f}s; "
+                f"val_loss={fr.val_loss.round(4)}")
+            hp = {"architecture": cfg.architecture, "lr": lr,
+                  "batch_size": bs}
+            if ucfg is not None:
+                hp.update(ct_kernel=ucfg.ct_kernel, filters=ucfg.filters,
+                          blocks=ucfg.n_blocks)
+            hparams_by_model[n] = [hp] * fm.n_folds
+            # the profile keeps JAX's counter for this branch (folds x
+            # epochs x batches of T, tune.py:418-420), not the steps run
+            n_steps, n_epochs = fr.train_steps, fr.epochs_run
+            counted = fm.n_folds * cfg.epochs * (-(-x.shape[0] // bs))
+        per_model_preds.append(preds_n)
+        steps += n_steps
+        epochs += n_epochs
+        if timer is not None:
+            timer.count("train_steps", counted)
+            timer.count("epochs_run", n_epochs)
+
+    return _nn_result(
+        cfg, filled, names, first, fm, labels, per_model_preds, device,
+        sweeps=sweeps, fixed_winners=fixed_winners,
+        best_hparams=[{n: hparams_by_model[n][f] for n in names}
+                      for f in range(fm.n_folds)],
+        train_steps=steps, epochs_run=epochs)
+
+
+def run_nn_branch_load(cfg: PipelineConfig, bundles, out_root=".",
+                       log=print, fingerprint=None,
+                       device=None) -> NNResult:
+    """The reference's training_type='load' (training.py:127-131) on
+    `device` (None: the card): rebuild each fold's saved winner from a
+    prior run's models/{dir}{model}_{obs}/{week} tree and predict, with no
+    training. The winners are rebuilt and predicted as the run that saved
+    them did (checkpoint.model_factory, engine.predict), so the replay is
+    bit-equal to it on the same device. A manifest saved under another
+    `fingerprint` is refused."""
+    device = devices.resolve(device)
+    names, filled, first, fm, labels, _, edges_pr = \
+        _nn_setup(cfg, bundles, log, device)
+    per_model_preds = []
+    hparams_by_model: Dict[str, list] = {}
+    for n in names:
+        mdir = os.path.join(out_root, "models", cfg.out_dir,
+                            f"{n}_{cfg.obs}", cfg.week)
+        mpath = os.path.join(mdir, f"winners_{cfg.week}.json")
+        if not os.path.exists(mpath):
+            raise FileNotFoundError(
+                f"no winner manifest at {mpath} — run the tune pipeline "
+                f"first; training_type='load' replays persisted winners")
+        with open(mpath) as fh:
+            manifest = {e["fold"]: e for e in json.load(fh)}
+        if fingerprint is not None:
+            saved_fp = next(iter(manifest.values())).get("fingerprint")
+            if saved_fp is not None and saved_fp != fingerprint:
+                diffs = {k: (saved_fp.get(k), fingerprint.get(k))
+                         for k in set(saved_fp) | set(fingerprint)
+                         if saved_fp.get(k) != fingerprint.get(k)}
+                raise ValueError(
+                    f"winner manifest {mpath} was tuned under different "
+                    f"settings than this load run (tune vs load): {diffs} "
+                    f"— replay with matching flags or re-tune")
+        missing = [f for f in range(fm.n_folds) if f not in manifest]
+        if missing:
+            raise ValueError(
+                f"manifest {mpath} lacks folds {missing} "
+                f"(has {sorted(manifest)}); rerun tuning with "
+                f"n_bootstraps={cfg.n_bootstraps}")
+        x = torch.as_tensor(filled[n].predictor_images(cfg.predictor),
+                            device=device)
+        t0 = time.time()
+        preds_n = torch.stack([
+            predict(checkpoint.load_winner(
+                mdir, cfg.week, f, architecture=cfg.architecture,
+                device=device)[0], None, x)
+            for f in range(fm.n_folds)])
+        log(f"[nn] model {n}: loaded {fm.n_folds} winners from {mdir} in "
+            f"{time.time() - t0:.1f}s")
+        if cfg.output == "deterministic":
+            preds_n = _deterministic_to_probs(preds_n, filled[n].weeks,
+                                              edges_pr)
+        per_model_preds.append(preds_n)
+        hparams_by_model[n] = [manifest[f]["hparams"]
+                               for f in range(fm.n_folds)]
+
+    return _nn_result(
+        cfg, filled, names, first, fm, labels, per_model_preds, device,
+        sweeps={}, best_hparams=[{n: hparams_by_model[n][f] for n in names}
+                                 for f in range(fm.n_folds)])
 
 
 def settings_fingerprint(cfg: PipelineConfig, source, seed,
@@ -334,19 +533,23 @@ class TuneOutputs:
 def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
                  make_plots=False, seed=0,
                  synthetic_step=None, log=print, profile_dir=None,
-                 training_type="tune", device="cpu") -> TuneOutputs:
-    """A whole tune run on `device`: data, ELR branch, NN branch, skill
-    mask, and under `out_root` the JAX CLI's outputs tree:
+                 training_type="tune", device=None) -> TuneOutputs:
+    """A whole tune run on `device` (None: the card): data, ELR branch, NN
+    branch (training_type 'tune' | 'train' | 'load'), skill mask, and
+    under `out_root` the JAX CLI's outputs tree:
     outputs/{out_dir}{result_name}_{obs}/ with ELR_rpss_{train,test}_{week}.nc,
-    unet_rpss_{train,val,test}_{week}.nc, best_hparams_{week}.json and
+    {arch}_rpss_{train,val,test}_{week}.nc, best_hparams_{week}.json and
     profile_{week}.json; models/{out_dir}{model}_{obs}/{week}/ with the
-    winners manifest and weights."""
-    if training_type != "tune":
-        raise _later(f"training_type={training_type!r}", "flags")
+    winners manifest and weights (none written by 'load', which replays
+    them)."""
+    if training_type not in ("tune", "train", "load"):
+        raise ValueError(f"training_type must be 'tune', 'train' or "
+                         f"'load', got {training_type!r}")
     if make_plots:
         raise _later("make_plots", "plots")
     if profile_dir:
         raise _later("profile_dir", "profile")
+    device = devices.resolve(device)
     timer = StageTimer()
     t_start = time.time()
     log(f"####### TUNING {'+'.join(cfg.models)} for {cfg.obs} "
@@ -379,10 +582,18 @@ def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
                      ("test", elr_res.rpss_test)]:
         p = os.path.join(out_dir, f"ELR_rpss_{tag}_{cfg.week}.nc")
         paths[f"elr_{tag}"] = write_netcdf(fld, p)
-    log("########### Neural Network ###########")
-    with timer.stage("nn"):
-        nn_res = run_nn_branch(cfg, bundles, log, timer=timer,
-                               training_type=training_type, device=device)
+    if training_type == "load":
+        log("########### Neural Network (load) ###########")
+        with timer.stage("nn"):
+            nn_res = run_nn_branch_load(cfg, bundles, out_root=out_root,
+                                        log=log, fingerprint=fingerprint,
+                                        device=device)
+    else:
+        log("########### Neural Network ###########")
+        with timer.stage("nn"):
+            nn_res = run_nn_branch(cfg, bundles, log, timer=timer,
+                                   training_type=training_type,
+                                   device=device)
     arch = cfg.architecture
 
     # per-fold winner models (the reference deletes its checkpoints,
@@ -391,10 +602,20 @@ def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
     for n in bundles:
         mdir = os.path.join(out_root, "models", cfg.out_dir,
                             f"{n}_{cfg.obs}", cfg.week)
-        # the ported predictor ('mean') is one channel
-        paths[f"winners_{n}"] = checkpoint.save_sweep_winners(
-            nn_res.sweeps[n], mdir, cfg.week, architecture=arch,
-            input_shape=(1, *bundles[n].shape_yx, 1), fingerprint=fingerprint)
+        c_in = bundles[n].n_m if cfg.predictor == "multi_predictor" else 1
+        shape = (1, *bundles[n].shape_yx, c_in)
+        if n in nn_res.sweeps:
+            paths[f"winners_{n}"] = checkpoint.save_sweep_winners(
+                nn_res.sweeps[n], mdir, cfg.week, architecture=arch,
+                input_shape=shape, fingerprint=fingerprint)
+        elif n in nn_res.fixed_winners:
+            var_list, vloss, ucfg = nn_res.fixed_winners[n]
+            # the hparams actually trained with: resolve_batch_sizes has
+            # replaced a `full` sentinel with T there
+            paths[f"winners_{n}"] = checkpoint.save_fixed_winners(
+                var_list, vloss, mdir, cfg.week, architecture=arch,
+                input_shape=shape, hparams=dict(nn_res.best_hparams[0][n]),
+                fingerprint=fingerprint, config=ucfg)
     for tag, fld in [("train", nn_res.rpss_train),
                      ("val", nn_res.rpss_val),
                      ("test", nn_res.rpss_test)]:

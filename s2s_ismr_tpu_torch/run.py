@@ -22,7 +22,6 @@ import time
 from dataclasses import replace
 
 _LATER = {
-    "flags": "ROADMAP queue A item 13",
     "realtime": "ROADMAP queue A item 14",
     "reports": "ROADMAP queue A item 15",
     "profile": "ROADMAP queue A item 16",
@@ -71,6 +70,7 @@ def _run(cfg, args, device, **kw):
     from .pipelines import tune
     out = tune.run_pipeline(cfg, source=args.source, out_root=args.out,
                             seed=args.seed, synthetic_step=args.step,
+                            training_type=args.training_type,
                             device=device, **kw)
     return out, {
         "config": cfg.name,
@@ -116,7 +116,9 @@ def _parser():
     ap.add_argument("--folds", type=int, default=None)
     ap.add_argument("--training-type", dest="training_type",
                     default="tune", choices=["tune", "train", "load"],
-                    help="only 'tune' (the grid search) is ported")
+                    help="'tune' the grid search, 'train' the first grid "
+                         "entry only, 'load' replay the winners saved "
+                         "under --out")
     ap.add_argument("--week", default=None,
                     help="re-target the config at another lead week (wk1, "
                          "wk2, wk3-4); `suite` accepts a comma list and "
@@ -124,10 +126,13 @@ def _parser():
     ap.add_argument("--standardize", action="store_true",
                     help="per-pixel standardize x/y over T before splits")
     ap.add_argument("--output", choices=("proba", "deterministic"),
-                    default="proba", help="U-Net head (only proba ported)")
+                    default="proba",
+                    help="U-Net head: tercile probabilities or a ReLU "
+                         "precipitation regression")
     ap.add_argument("--predictor", choices=("mean", "multi_predictor",
                                             "stacked"), default=None,
-                    help="predictor mode (only mean ported)")
+                    help="predictor images: the ensemble mean, members "
+                         "as channels, or members as extra rows")
     ap.add_argument("--batch-size", dest="batch_size", default=None,
                     metavar="N|full",
                     help="override the tuning grid's batch sizes with one "
@@ -156,12 +161,6 @@ def _reject_unported(args):
         raise _not_ported("`realtime`", "realtime")
     if args.config in ("accs", "barplot"):
         raise _not_ported(f"`{args.config}`", "reports")
-    if args.training_type != "tune":
-        raise _not_ported(f"--training-type {args.training_type}", "flags")
-    if args.output != "proba":
-        raise _not_ported(f"--output {args.output}", "flags")
-    if args.predictor not in (None, "mean"):
-        raise _not_ported(f"--predictor {args.predictor}", "flags")
     if args.plots:
         raise _not_ported("--plots", "reports")
     if args.profile:
@@ -198,6 +197,10 @@ def _resolve(name, args):
         cfg = replace(cfg, n_bootstraps=args.folds)
     if args.standardize:
         cfg = replace(cfg, standardize=True)
+    if args.output != "proba":
+        cfg = replace(cfg, output=args.output)
+    if args.predictor:
+        cfg = replace(cfg, predictor=args.predictor)
     if args.batch_size:
         try:
             bs = 0 if args.batch_size == "full" else int(args.batch_size)

@@ -23,6 +23,15 @@ so skipping them changes no result.
 Parameters and BN buffers are re-seated as views of one flat vector each,
 so the Adam update, the gate and the best-epoch copy are a few whole-vector
 ops, like the JAX version's optax.flatten.
+
+Dropout masks come from a per-lane generator on the lane's device, handed
+to the model's forward once per batch (JAX's per-batch dropout keys).
+
+Every eval forward (the per-epoch val loss, the winner forward, the replay
+of a saved winner) runs in fixed row chunks, `row_chunk` rows each, so no
+conv kernel launch exceeds its N*H*W limit (the stacked predictor has
+thousands of rows). Eval rows are independent, and one rule everywhere
+keeps a replay bit-equal to the run it replays.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..kernels.conv import MAX_PIXELS
 from .losses import categorical_crossentropy, masked_mse
 
 _LOSSES = {"categorical_crossentropy": categorical_crossentropy,
@@ -116,12 +126,30 @@ class LaneState:
         return cls(model, params, flat, stats, opt, opt.init(flat))
 
 
-def train_step(lane: LaneState, xb, yb, wb, lr, loss_impl):
+def row_chunk(x):
+    """Rows per eval forward of images x (N, H, W, C): the most that keep
+    one conv kernel launch at full map size within its N*H*W limit."""
+    return max(1, MAX_PIXELS // (x.shape[1] * x.shape[2]))
+
+
+def _eval_rows(fn, x):
+    """fn(chunk) over x in fixed chunks of row_chunk(x) rows,
+    concatenated."""
+    rows = row_chunk(x)
+    if x.shape[0] <= rows:
+        return fn(x)
+    return torch.cat([fn(x[i:i + rows]) for i in range(0, x.shape[0], rows)])
+
+
+def train_step(lane: LaneState, xb, yb, wb, lr, loss_impl,
+               dropout_generator: torch.Generator | None = None):
     """One gated optimizer step on a batch; returns the loss (0-d tensor).
     A batch with zero total weight or a non-finite loss leaves parameters,
-    BN statistics and Adam state (count included) as they were."""
+    BN statistics and Adam state (count included) as they were. The
+    model's dropout, if any, draws from `dropout_generator`."""
     stats_before = lane.stats.clone()
-    out = lane.model(xb, train=True, sample_weight=wb)
+    out = lane.model(xb, train=True, sample_weight=wb,
+                     dropout_generator=dropout_generator)
     loss = loss_impl(out, yb, wb)
     grads = torch.autograd.grad(loss, lane.params)
     g = torch.cat([gp.reshape(-1) for gp in grads])
@@ -137,7 +165,8 @@ def train_step(lane: LaneState, xb, yb, wb, lr, loss_impl):
 
 def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
                generator: torch.Generator | None, settings: TrainSettings,
-               init_variables: dict | None = None, epoch_perms=None):
+               init_variables: dict | None = None, epoch_perms=None,
+               dropout_generator: torch.Generator | None = None):
     """Train one lane in place; return (best_state, best_val_loss, history).
 
     model:     module with forward(x, train, sample_weight); trained in
@@ -150,6 +179,8 @@ def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
     init_variables: optional state_dict loaded before training
     epoch_perms: optional (epochs, T) int64 permutations used instead of
                the generator's (a test seam: feeds JAX's batch orders)
+    dropout_generator: generator on x's device for the model's dropout
+               masks (models without dropout ignore it)
     Returns the best state_dict (copies), the best val loss (0-d tensor)
     and the per-epoch val losses (epochs,), NaN past an early exit.
     """
@@ -205,10 +236,11 @@ def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
         batches = idx.reshape(n_batches, bs)
         for bidx in batches[:n_real]:
             train_step(lane, x_pad[bidx], y_pad[bidx], w_pad[bidx], lr,
-                       loss_impl)
+                       loss_impl, dropout_generator)
 
         with torch.no_grad():
-            vloss = loss_impl(model(x_val, train=False), y_val, w_val)
+            out = _eval_rows(lambda v: model(v, train=False), x_val)
+            vloss = loss_impl(out, y_val, w_val)
             improved = (vloss < best_vloss) & ~stopped
             best_flat = torch.where(improved, flat, best_flat)
             best_stats = torch.where(improved, stats, best_stats)
@@ -226,19 +258,22 @@ def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
 
 
 def predict(model: nn.Module, variables, x):
-    """Inference forward over the full T axis (eval mode, running BN).
+    """Inference forward over the full T axis (eval mode, running BN), in
+    fixed chunks of row_chunk(x) rows.
     variables: a state_dict, or None for the model's own state.
 
     cuDNN is held to deterministic algorithms here (its transposed conv
     may otherwise sum in another order from call to call), so a winner's
     predictions reproduce bit for bit when it is reloaded."""
+    def fwd(v):
+        if variables is None:
+            return model(v, train=False)
+        return torch.func.functional_call(model, variables, (v,),
+                                          {"train": False})
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         with torch.no_grad():
-            if variables is None:
-                return model(x, train=False)
-            return torch.func.functional_call(model, variables, (x,),
-                                              {"train": False})
+            return _eval_rows(fwd, x)
     finally:
         torch.backends.cudnn.deterministic = prev

@@ -9,6 +9,9 @@ Lanes (fold x trial) run one after another on one device (the JAX
 package's serial lane dispatch). Eager torch has no compile to hide, so the
 JAX program memo, compile-ahead and thread pools have no counterpart;
 batched lanes and multi-GPU lanes are later work (ROADMAP).
+
+`run_fixed_training` is the fixed single-configuration training of the
+cnn/mlp models and of training_type='train': one lane per fold.
 """
 
 from __future__ import annotations
@@ -16,13 +19,19 @@ from __future__ import annotations
 import itertools
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
+from .. import device as devices
 from ..models import UNet, UNetConfig
 from .engine import TrainSettings, predict, train_batches, train_fold
+
+# model_factory(generator) -> a fresh module on the run's device, its
+# parameters drawn from the generator
+ModelFactory = Callable[[torch.Generator], nn.Module]
 
 
 @dataclass(frozen=True)
@@ -85,41 +94,82 @@ class SweepResult:
     timings: Dict[str, float] = field(default_factory=dict)  # phase seconds
 
 
-def lane_generator(base_seed, fold_idx, trial_idx) -> torch.Generator:
-    """Deterministic per-(fold, trial) CPU generator for init and batch
-    order, standing in for the reference's reset_random_seeds()."""
+def lane_generator(base_seed, fold_idx, trial_idx, device="cpu",
+                   stream=0) -> torch.Generator:
+    """Deterministic per-(fold, trial) generator, standing in for the
+    reference's reset_random_seeds(): stream 0 on the CPU draws the init
+    and the batch orders, stream 1 on the lane's device the dropout
+    masks."""
     seed = np.random.SeedSequence([base_seed, fold_idx, trial_idx])
-    return torch.Generator().manual_seed(int(seed.generate_state(1)[0]))
+    return torch.Generator(device=device).manual_seed(
+        int(seed.generate_state(stream + 1)[stream]))
 
 
-def build_winner(config: UNetConfig, state, in_channels, device="cpu"):
-    """A fresh U-Net holding `state`. The sweep's winner forward and the
-    checkpoint replay both build the model this way, so a reloaded winner
-    runs exactly the computation the sweep ran."""
+def rebuild(model_factory: ModelFactory, state):
+    """A fresh model from the factory holding `state`. Every winner forward
+    (the sweep's, the fixed training's) and the checkpoint replay build
+    the model this way, so a reloaded winner runs exactly the computation
+    the run did."""
     # a private generator: the throw-away init must not draw from the
     # global RNG
-    model = UNet(config, in_channels, generator=torch.Generator(),
-                 device=device)
+    model = model_factory(torch.Generator())
     model.load_state_dict(state)
     return model
 
 
+def build_winner(config: UNetConfig, state, in_channels, device=None):
+    """A fresh U-Net of `config` holding `state`, on `device` (None: the
+    card)."""
+    device = devices.resolve(device)
+    return rebuild(lambda g: UNet(config, in_channels, generator=g,
+                                  device=device), state)
+
+
+def _settings(epochs, batch_size, patience, val_masks, early_exit, output):
+    if output not in ("proba", "deterministic"):
+        raise ValueError(f"output must be 'proba' or 'deterministic', got "
+                         f"{output!r}")
+    # the deterministic head regresses raw precipitation (NaN-masked MSE)
+    return TrainSettings(epochs=epochs, batch_size=batch_size,
+                         patience=patience,
+                         val_rows=int(np.asarray(val_masks).sum(1).max()),
+                         early_exit=early_exit,
+                         loss=("mse" if output == "deterministic"
+                               else "categorical_crossentropy"))
+
+
+def _overrides(lane_overrides, f, trial_idx):
+    """train_fold's init_variables / epoch_perms for lane (f, trial_idx)
+    from the test seam, or none."""
+    if lane_overrides is None:
+        return {}
+    init, perms = lane_overrides(f, trial_idx)
+    return {"init_variables": init, "epoch_perms": perms}
+
+
 def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
                    grid: TuningGrid, epochs: int = 100, base_seed: int = 42,
-                   device="cpu") -> SweepResult:
+                   output: str = "proba", device=None,
+                   lane_overrides=None) -> SweepResult:
     """Run the full tuning sweep, lane after lane, each with early exit.
 
     x:           (T, H, W, C) predictor images
-    y_oh_folds:  (F, T, H, W, 3) per-fold one-hot labels
+    y_oh_folds:  (F, T, H, W, 3) per-fold one-hot labels, or for
+                 output='deterministic' (F, T, H, W, 1) raw targets (NaN
+                 where the loss ignores them)
     train_masks: (F, T) bool; val_masks: (F, T) bool
-    device:      where the lanes train
+    device:      where the lanes train (None: the card)
+    lane_overrides: optional (fold, trial index) -> (init state_dict,
+                 (epochs, T) batch orders) used instead of the lane
+                 generator's (a test seam: feeds JAX's init and batch
+                 orders)
     """
+    device = devices.resolve(device)
     x = torch.as_tensor(x, dtype=torch.float32).to(device)
     y_oh_folds = torch.as_tensor(y_oh_folds, dtype=torch.float32).to(device)
     train_masks = np.asarray(train_masks, bool)
     val_masks = np.asarray(val_masks, bool)
     F, T = train_masks.shape
-    val_rows = int(val_masks.sum(1).max())
 
     trials = enumerate_trials(grid)
     val_table = np.full((F, len(trials)), np.inf, np.float32)
@@ -129,13 +179,12 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
 
     def config(t: Trial):
         return UNetConfig(filters=t.filters, n_blocks=t.n_blocks,
-                          ct_kernel=t.ct_kernel)
+                          ct_kernel=t.ct_kernel, output=output)
 
     t0 = time.perf_counter()
     for key_, bucket in bucket_trials(trials).items():
-        settings = TrainSettings(epochs=epochs, batch_size=key_[0],
-                                 patience=grid.patience, val_rows=val_rows,
-                                 early_exit=True)
+        settings = _settings(epochs, key_[0], grid.patience, val_masks,
+                             True, output)
         for f in range(F):
             n_real = train_batches(int(train_masks[f].sum()), key_[0])
             for t in bucket:
@@ -144,7 +193,9 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
                              device=device)
                 best, vloss, hist = train_fold(
                     model, x, y_oh_folds[f], train_masks[f], val_masks[f],
-                    t.lr, gen, settings)
+                    t.lr, gen, settings, dropout_generator=lane_generator(
+                        base_seed, f, t.index, device, stream=1),
+                    **_overrides(lane_overrides, f, t.index))
                 n_ep = int(torch.isfinite(hist).sum())
                 total_epochs += n_ep
                 total_steps += n_ep * n_real
@@ -179,3 +230,62 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
         epochs_run=total_epochs,
         timings={"execute_s": t_execute,
                  "collect_s": time.perf_counter() - t0})
+
+
+@dataclass
+class FixedResult:
+    """Per-fold outcome of one configuration trained over every fold."""
+    val_loss: np.ndarray                 # (F,) best-epoch val loss
+    predictions: torch.Tensor            # (F, T, H, W, n_out), on the
+    # run's device
+    winner_variables: List[Any]          # per fold: state_dict
+    train_steps: int = 0                 # optimizer steps executed
+    epochs_run: int = 0                  # epochs executed, summed over folds
+
+
+def run_fixed_training(model_factory: ModelFactory, x, y_oh_folds,
+                       train_masks, val_masks, lr: float = 1e-3,
+                       batch_size: int = 16, epochs: int = 100,
+                       patience: int = 10, base_seed: int = 42,
+                       early_exit: bool = True, output: str = "proba",
+                       device=None, lane_overrides=None) -> FixedResult:
+    """One configuration over every fold, lane after lane: the cnn/mlp
+    branch (training.py:53-64) and training_type='train'
+    (training.py:119-125), port of the JAX run_fixed_training.
+
+    model_factory(generator) builds a fresh model on `device` (None: the
+    card); fold f's lane draws its init and batch orders from
+    lane_generator(base_seed, f, 0), as JAX keys it _lane_keys(base_seed,
+    f, 0). The reference's 'train' branch has no EarlyStopping
+    (ModelCheckpoint only), so callers replicating it pass
+    early_exit=False: all epochs run and the best-val weights are kept.
+    output='deterministic' regresses raw targets with NaN-masked MSE.
+    Winners are rebuilt and predicted as the sweep's are.
+
+    lane_overrides: as run_unet_sweep's, called with trial index 0."""
+    device = devices.resolve(device)
+    x = torch.as_tensor(x, dtype=torch.float32).to(device)
+    y_oh_folds = torch.as_tensor(y_oh_folds, dtype=torch.float32).to(device)
+    train_masks = np.asarray(train_masks, bool)
+    settings = _settings(epochs, batch_size, patience, val_masks, early_exit,
+                         output)
+    vloss, states, preds = [], [], []
+    steps = n_epochs = 0
+    for f in range(train_masks.shape[0]):
+        gen = lane_generator(base_seed, f, 0)
+        best, v, hist = train_fold(
+            model_factory(gen), x, y_oh_folds[f], train_masks[f],
+            val_masks[f], lr, gen, settings,
+            dropout_generator=lane_generator(base_seed, f, 0, device,
+                                             stream=1),
+            **_overrides(lane_overrides, f, 0))
+        n_ep = int(torch.isfinite(hist).sum())
+        n_epochs += n_ep
+        steps += n_ep * train_batches(int(train_masks[f].sum()), batch_size)
+        vloss.append(v)
+        states.append(best)
+        preds.append(predict(rebuild(model_factory, best), None, x))
+    return FixedResult(val_loss=torch.stack(vloss).cpu().numpy(),
+                       predictions=torch.stack(preds),
+                       winner_variables=states, train_steps=steps,
+                       epochs_run=n_epochs)

@@ -5,7 +5,8 @@ Mirrors tests/test_elr.py::test_elr_folds_end_to_end at full size, the
 checkpoint tests of tests/test_attrib_checkpoint_realtime.py
 (test_checkpoint_roundtrip, test_sweep_winner_save_load,
 test_pipeline_persists_winners) and the outputs-tree checks of
-tests/test_run_cli.py::test_week_override_pipeline_end_to_end.
+tests/test_run_cli.py::test_week_override_pipeline_end_to_end. Every port
+call names its device (`device="cpu"`): the library defaults to the card.
 Tolerances (float32): labels bit-equal; ELR probabilities within 1e-4 and
 RPSS maps within 1e-5 of JAX, NaN pattern identical; a winner reloaded
 from disk predicts bit for bit what the sweep did (same code, same device).
@@ -52,7 +53,8 @@ def _elr_both(name, step=None):
     bundles = ttune.load_bundles(tconfigs.get_config(name),
                                  synthetic_step=step)
     j = jtune.run_elr_branch(jconfigs.get_config(name), bundles, log=quiet)
-    t = ttune.run_elr_branch(tconfigs.get_config(name), bundles, log=quiet)
+    t = ttune.run_elr_branch(tconfigs.get_config(name), bundles, log=quiet,
+                             device="cpu")
     return bundles, j, t
 
 
@@ -104,14 +106,14 @@ def test_mme_nn_setup_labels_match_jax(mme_small):
     jcfg = replace(jconfigs.get_config("tune_2MME").fast_variant(epochs=1),
                    years=(2003, 2012))
     js = jtune._nn_setup(jcfg, bundles, quiet)
-    ts = ttune._nn_setup(cfg, bundles, quiet)
+    ts = ttune._nn_setup(cfg, bundles, quiet, device="cpu")
     np.testing.assert_array_equal(ts[4], js[4])
     np.testing.assert_array_equal(ts[5].numpy(), np.asarray(js[5]))
 
 
 def test_mme_nn_branch_blends_models(mme_small):
     cfg, bundles = mme_small
-    res = ttune.run_nn_branch(cfg, bundles, log=quiet)
+    res = ttune.run_nn_branch(cfg, bundles, log=quiet, device="cpu")
     assert list(res.sweeps) == ["IITM", "ECMWF"]
     want = telr.blend_probabilities([res.sweeps[n].predictions
                                      for n in res.sweeps])
@@ -184,7 +186,8 @@ def _fast_cfg(mod):
 def pipeline_run(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("run"))
     out = ttune.run_pipeline(_fast_cfg(tconfigs), source="synthetic",
-                             out_root=root, synthetic_step=2.0, log=quiet)
+                             out_root=root, synthetic_step=2.0, log=quiet,
+                             device="cpu")
     return root, out
 
 
@@ -268,7 +271,8 @@ def test_checkpoint_round_trip_replays_the_sweep(pipeline_run):
     x = torch.as_tensor(b.fillna(0.0).predictor_images("mean"))
     sw = out.nn.sweeps["ECMWF"]
     for f in range(2):
-        model, variables = tcheckpoint.load_winner(mdir, wk, f)
+        model, variables = tcheckpoint.load_winner(mdir, wk, f,
+                                                   device="cpu")
         assert model.config == sw.winner_configs[f]
         for k, v in sw.winner_variables[f].items():
             assert torch.equal(variables[k], v), k
@@ -282,26 +286,51 @@ def test_save_load_variables_round_trip(tmp_path):
                  generator=torch.Generator().manual_seed(0))
     state = model.state_dict()
     p = tcheckpoint.save_variables(state, str(tmp_path / "w" / "m.pt"))
-    loaded = tcheckpoint.load_variables(p)
+    loaded = tcheckpoint.load_variables(p, device="cpu")
     assert list(loaded) == list(state)
     for k in state:
         assert torch.equal(loaded[k], state[k])
 
 
-def test_load_winner_cnn_raises(tmp_path):
-    entry = {"fold": 0, "file": "m.pt", "architecture": "cnn",
-             "config": None, "input_shape": [1, 16, 16, 1]}
-    with open(tmp_path / "winners_wk3-4.json", "w") as fh:
-        json.dump([entry], fh)
-    tcheckpoint.save_variables({}, str(tmp_path / "m.pt"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcheckpoint.load_winner(str(tmp_path), "wk3-4", 0)
+@pytest.mark.parametrize("arch, shape", [("cnn", [1, 16, 16, 1]),
+                                         ("mlp", [1, 8, 12, 3])])
+def test_load_winner_cnn_mlp(tmp_path, arch, shape):
+    """test_attrib_checkpoint_realtime.py / test_training_type_train.py:
+    a cnn or mlp winner saved by save_fixed_winners (`*_trained`, config
+    null) is rebuilt from the manifest's architecture and input shape and
+    holds the saved state."""
+    make = tcheckpoint.model_factory(arch, shape, device="cpu")
+    state = make(torch.Generator().manual_seed(3)).state_dict()
+    tcheckpoint.save_fixed_winners([state], [0.5], str(tmp_path), "wk3-4",
+                                   arch, input_shape=shape,
+                                   hparams={"architecture": arch})
+    with open(tmp_path / "winners_wk3-4.json") as fh:
+        entry = json.load(fh)[0]
+    assert entry["file"] == f"best_model_{arch}_0_trained.pt"
+    assert entry["config"] is None and entry["input_shape"] == shape
+    model, variables = tcheckpoint.load_winner(str(tmp_path), "wk3-4", 0,
+                                               device="cpu")
+    assert type(model).__name__ == arch.upper()
+    for k, v in state.items():
+        assert torch.equal(variables[k], v) and torch.equal(
+            model.state_dict()[k], v), k
+    x = torch.zeros((2, *shape[1:]))
+    assert predict(model, None, x).shape == (2, *shape[1:3], 3)
+
+
+def test_unknown_training_type_raises():
+    """run_pipeline refuses a training_type other than tune / train / load
+    with JAX's message, before any work."""
+    for mod in (jtune, ttune):
+        with pytest.raises(ValueError, match="training_type must be"):
+            mod.run_pipeline(_fast_cfg(tconfigs), log=quiet,
+                             training_type="fit")
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(training_type="train"), "item 13"),
     (dict(make_plots=True), "item 15"),
     (dict(profile_dir="trace"), "item 16")])
 def test_unported_pipeline_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
-        ttune.run_pipeline(_fast_cfg(tconfigs), log=quiet, **kw)
+        ttune.run_pipeline(_fast_cfg(tconfigs), log=quiet, device="cpu",
+                           **kw)

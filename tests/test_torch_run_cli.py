@@ -4,9 +4,10 @@ Mirrors tests/test_run_cli.py: listing, config resolution, suite
 incremental writes and --resume, failure isolation, the --check gate, the
 --week cross product and single-week keys, error paths — with the port's
 `_run` monkeypatched so no pipeline runs — plus what is the port's own:
-the device is explicit (no card and no --cpu exits non-zero), flags of
-unported slices are refused naming their ROADMAP item, and one real
-`--cpu` run prints the JAX CLI's summary keys.
+the device is explicit (no card and no --cpu exits non-zero), the mode
+flags reach run_pipeline, flags of unported slices are refused naming
+their ROADMAP item, and one real `--cpu` run prints the JAX CLI's summary
+keys.
 """
 
 import json
@@ -91,11 +92,33 @@ def test_module_entry_without_card_exits_nonzero():
     assert "no CUDA device" in proc.stderr and proc.stdout == ""
 
 
+@pytest.mark.parametrize("argv, want", [
+    (["--training-type", "load"], dict(training_type="load")),
+    (["--training-type", "train"], dict(training_type="train")),
+    (["--output", "deterministic"], dict(output="deterministic")),
+    (["--predictor", "stacked"], dict(predictor="stacked"))])
+def test_mode_flags_reach_run_pipeline(argv, want, monkeypatch):
+    """The JAX CLI's mode flags (run.py:252-255, 289-292, 312) go through to
+    run_pipeline: --output and --predictor into the config,
+    --training-type as the call's training_type, on the chosen device."""
+    from s2s_ismr_tpu_torch.pipelines import tune
+    seen = []
+
+    def fake_pipeline(cfg, **kw):
+        seen.append((cfg, kw))
+        raise RuntimeError("stop")
+    monkeypatch.setattr(tune, "run_pipeline", fake_pipeline)
+    with pytest.raises(RuntimeError, match="stop"):
+        cli.main(["tune_ECMWF_com"] + FAST + argv)
+    (cfg, kw), = seen
+    got = {"training_type": kw["training_type"], "output": cfg.output,
+           "predictor": cfg.predictor}
+    assert got == {"training_type": "tune", "output": "proba",
+                   "predictor": "mean", **want}
+    assert kw["device"] == "cpu"
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["--training-type", "load"], "item 13"),
-    (["--training-type", "train"], "item 13"),
-    (["--output", "deterministic"], "item 13"),
-    (["--predictor", "stacked"], "item 13"),
     (["--plots"], "item 15"),
     (["--profile", "trace"], "item 16")])
 def test_unported_flags_refused(argv, item, monkeypatch):

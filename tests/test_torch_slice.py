@@ -5,7 +5,7 @@ The slice is the hindcast tuning run of tune_ECMWF_com (fast variant) on a
 tercile labels, trials in the reference's product order, one lane trained
 with the same init and batch orders on both sides, winner forward, RPSS.
 Mirrors tests/test_sweep_serial.py and the NN-branch checks of
-tests/test_run_cli.py.
+tests/test_run_cli.py. Port calls name their device (`device="cpu"`).
 """
 
 import dataclasses
@@ -58,7 +58,7 @@ def setups():
     tb = ttune.load_bundles(tcfg, synthetic_step=2)
     quiet = lambda s: None  # noqa: E731
     return (jcfg, jb, jtune._nn_setup(jcfg, jb, quiet),
-            tcfg, tb, ttune._nn_setup(tcfg, tb, quiet))
+            tcfg, tb, ttune._nn_setup(tcfg, tb, quiet, device="cpu"))
 
 
 @pytest.mark.parametrize("name", sorted(jconfigs.CONFIGS))
@@ -158,7 +158,7 @@ def test_run_nn_branch_end_to_end(setups):
     _, jb, js, tcfg, tb, _ = setups
     jlab = js[4]
     F, T = jlab.shape[:2]
-    res = ttune.run_nn_branch(tcfg, tb, log=lambda s: None)
+    res = ttune.run_nn_branch(tcfg, tb, log=lambda s: None, device="cpu")
     land = jb["ECMWF"].valid_pixels()
     for split in (res.rpss_train, res.rpss_val, res.rpss_test):
         assert split.values.shape == (F, 16, 16)
@@ -180,8 +180,33 @@ def test_run_nn_branch_end_to_end(setups):
 @pytest.mark.parametrize("change", [
     dict(architecture="cnn"), dict(output="deterministic"),
     dict(predictor="stacked"), dict(predictor="multi_predictor")])
-def test_unported_branches_raise(setups, change):
-    _, _, _, tcfg, tb, _ = setups
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttune.run_nn_branch(replace(tcfg, **change), tb,
-                            log=lambda s: None)
+def test_branch_modes_end_to_end(setups, change):
+    """The NN branch's other modes (test_output_predictor_modes.py,
+    test_training_type_train.py): the cnn's fixed training, the
+    deterministic head scored through fold-edge categorization, members
+    as extra rows, members as channels. Finite RPSS on land; one-hot
+    rows for the deterministic head."""
+    _, jb, _, tcfg, tb, _ = setups
+    cfg = replace(tcfg, **change)
+    if cfg.predictor == "stacked":
+        # 11 members x T rows: fewer, larger batches keep the CPU run short
+        cfg = replace(cfg, tuning=replace(cfg.tuning, batch_sizes=(64,)))
+    res = ttune.run_nn_branch(cfg, tb, log=lambda s: None, device="cpu")
+    F = res.masks.n_folds
+    rows = tb["ECMWF"].n_t * (tb["ECMWF"].n_m if cfg.predictor == "stacked"
+                              else 1)
+    assert tuple(res.predictions.shape) == (F, rows, 16, 16, 3)
+    land = jb["ECMWF"].valid_pixels()
+    for split in (res.rpss_train, res.rpss_val, res.rpss_test):
+        assert np.isfinite(split.values[:, land]).all()
+    assert res.train_steps > 0 and res.epochs_run > 0
+    if cfg.output == "deterministic":
+        p = res.predictions.numpy()
+        ok = np.isfinite(p).all(-1)
+        assert set(np.unique(p[ok])) <= {0.0, 1.0}
+        np.testing.assert_array_equal(p[ok].sum(-1), 1.0)
+    if cfg.architecture == "cnn":
+        assert not res.sweeps and set(res.fixed_winners) == {"ECMWF"}
+        assert res.best_hparams[0]["ECMWF"]["architecture"] == "cnn"
+    else:
+        assert list(res.sweeps) == ["ECMWF"]
