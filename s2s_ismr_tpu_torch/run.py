@@ -6,6 +6,8 @@ One entry point runs any registered tune config on one device:
     python -m s2s_ismr_tpu_torch.run tune_ECMWF_com --synthetic --fast
     python -m s2s_ismr_tpu_torch.run tune_ECMWF_com --synthetic --fast --cpu
     python -m s2s_ismr_tpu_torch.run suite --configs tune_ECMWF_com,tune_2MME
+    python -m s2s_ismr_tpu_torch.run realtime --from-config tune_ECMWF_com \
+        --synthetic --out DIR      # after a tune run into the same --out
     python -m s2s_ismr_tpu_torch.run --list
 
 The run goes to the GPU (`cuda`) unless `--cpu` is given; without `--cpu`
@@ -22,7 +24,6 @@ import time
 from dataclasses import replace
 
 _LATER = {
-    "realtime": "ROADMAP queue A item 14",
     "reports": "ROADMAP queue A item 15",
     "profile": "ROADMAP queue A item 16",
 }
@@ -100,14 +101,19 @@ def _parser():
     ap.add_argument("config", nargs="?",
                     help="pipeline name (e.g. tune_ECMWF_com) or `suite`")
     ap.add_argument("--list", action="store_true", help="list configs")
-    ap.add_argument("--source", default="synthetic",
-                    choices=["synthetic", "iridl"], help="data source")
+    ap.add_argument("--source", default=None,
+                    choices=["synthetic", "iridl"],
+                    help="data source (default: synthetic, except for the "
+                         "operational `realtime --date`, whose tercile "
+                         "edges must come from the real hindcast record: "
+                         "iridl there)")
     ap.add_argument("--synthetic", dest="source", action="store_const",
                     const="synthetic")
     ap.add_argument("--fast", action="store_true",
                     help="shrunken smoke variant (2 folds, 2 trials)")
     ap.add_argument("--plots", action="store_true",
-                    help="render figures (not ported yet)")
+                    help="realtime: render the figures (needs matplotlib); "
+                         "the tune run's plots are not ported yet")
     ap.add_argument("--out", default=".", help="output root directory")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--step", type=float, default=None,
@@ -153,15 +159,27 @@ def _parser():
                     help="suite: exit 1 if a config's elr/nn_rpss_test_mean "
                          "drifts from JSON ({'tolerance': t, 'configs': "
                          "{name: {...}}}) by more than the tolerance")
+    ap.add_argument("--from-config", dest="from_config",
+                    default="tune_ECMWF_com",
+                    help="tune config whose winners `realtime` evaluates")
+    ap.add_argument("--date", default=None,
+                    help="realtime: comma-separated YYYY-MM-DD init dates; "
+                         "fetches dated forecasts + verifying obs through "
+                         "the gateway and predicts with the tuned winner; "
+                         "without --date, realtime scores the held-out "
+                         "final hindcast year")
+    ap.add_argument("--no-download", dest="download", action="store_false",
+                    help="realtime: use cached files only")
+    ap.add_argument("--no-indices", dest="indices", action="store_false",
+                    help="realtime: skip RMM/Nino3.4 index acquisition "
+                         "(MJO/ENSO composites are then omitted)")
     return ap
 
 
 def _reject_unported(args):
-    if args.config == "realtime":
-        raise _not_ported("`realtime`", "realtime")
     if args.config in ("accs", "barplot"):
         raise _not_ported(f"`{args.config}`", "reports")
-    if args.plots:
+    if args.plots and args.config != "realtime":
         raise _not_ported("--plots", "reports")
     if args.profile:
         raise _not_ported("--profile", "profile")
@@ -212,6 +230,41 @@ def _resolve(name, args):
                              "or 'full'")
         cfg = replace(cfg, tuning=replace(cfg.tuning, batch_sizes=(bs,)))
     return cfg
+
+
+def _realtime(args):
+    """`realtime`: the held-out final year scored with the winners of
+    --from-config (run_realtime_eval), or the operational forecast of the
+    --date init dates (run_realtime_forecast); prints the paths JSON."""
+    from .pipelines import get_config, realtime
+    try:
+        cfg = get_config(args.from_config)
+    except KeyError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
+    # the tune-path overrides, so the cfg matches the winners being
+    # loaded (their manifest fingerprint is validated downstream)
+    if args.output != "proba":
+        cfg = replace(cfg, output=args.output)
+    if args.predictor:
+        cfg = replace(cfg, predictor=args.predictor)
+    if args.standardize:
+        cfg = replace(cfg, standardize=True)
+    if args.week:
+        cfg = cfg.with_week(args.week)
+    device = _device(args)
+    if device is None:
+        return 2
+    kw = dict(out_root=args.out, seed=args.seed, synthetic_step=args.step,
+              download=args.download, fetch_indices=args.indices,
+              make_plots=args.plots, device=device)
+    if args.date:
+        _, paths = realtime.run_realtime_forecast(
+            cfg, args.date.split(","), hindcast_source=args.source, **kw)
+    else:
+        _, paths = realtime.run_realtime_eval(cfg, source=args.source, **kw)
+    print(json.dumps(paths, indent=1))
+    return 0
 
 
 def _suite(args):
@@ -318,7 +371,15 @@ def main(argv=None):
             print(f"{name:18s} models={'+'.join(cfg.models):16s} "
                   f"years={cfg.years} week={cfg.week} dir={cfg.out_dir!r}")
         print("suite              run several tune configs in one process")
+        print("realtime           realtime eval + GradCAM + MJO/ENSO "
+              "(Realtime_fcast_MME)")
         return 0
+    if args.source is None:
+        # operational realtime fits tercile edges on the hindcast record;
+        # a synthetic default there would silently score real forecasts
+        # against random-data edges
+        args.source = ("iridl" if args.config == "realtime" and args.date
+                       else "synthetic")
     _reject_unported(args)
     if args.week:
         rc = _check_weeks(args)
@@ -326,6 +387,8 @@ def main(argv=None):
             return rc
     if args.config == "suite":
         return _suite(args)
+    if args.config == "realtime":
+        return _realtime(args)
 
     try:
         cfg = _resolve(args.config, args)

@@ -36,6 +36,7 @@ keeps a replay bit-equal to the run it replays.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
@@ -132,7 +133,7 @@ def row_chunk(x):
     return max(1, MAX_PIXELS // (x.shape[1] * x.shape[2]))
 
 
-def _eval_rows(fn, x):
+def eval_rows(fn, x):
     """fn(chunk) over x in fixed chunks of row_chunk(x) rows,
     concatenated."""
     rows = row_chunk(x)
@@ -239,7 +240,7 @@ def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
                        loss_impl, dropout_generator)
 
         with torch.no_grad():
-            out = _eval_rows(lambda v: model(v, train=False), x_val)
+            out = eval_rows(lambda v: model(v, train=False), x_val)
             vloss = loss_impl(out, y_val, w_val)
             improved = (vloss < best_vloss) & ~stopped
             best_flat = torch.where(improved, flat, best_flat)
@@ -257,23 +258,29 @@ def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
     return best, best_vloss, hist
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Hold cuDNN to deterministic algorithms inside the block: its
+    transposed conv may otherwise sum in another order from call to call."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
 def predict(model: nn.Module, variables, x):
     """Inference forward over the full T axis (eval mode, running BN), in
     fixed chunks of row_chunk(x) rows.
     variables: a state_dict, or None for the model's own state.
 
-    cuDNN is held to deterministic algorithms here (its transposed conv
-    may otherwise sum in another order from call to call), so a winner's
-    predictions reproduce bit for bit when it is reloaded."""
+    cuDNN is held deterministic, so a winner's predictions reproduce bit
+    for bit when it is reloaded."""
     def fwd(v):
         if variables is None:
             return model(v, train=False)
         return torch.func.functional_call(model, variables, (v,),
                                           {"train": False})
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        with torch.no_grad():
-            return _eval_rows(fwd, x)
-    finally:
-        torch.backends.cudnn.deterministic = prev
+    with deterministic_cudnn(), torch.no_grad():
+        return eval_rows(fwd, x)

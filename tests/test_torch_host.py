@@ -1,10 +1,12 @@
 """The port's own numpy host layer against the JAX package's.
 
 The port keeps copies of `timeutils`, `grid`, `field`, `io/`, `data/`,
-`train/splits.py` and `profiling.StageTimer` so that it imports nothing of
-`s2s_ismr_tpu`. These tests hold each copy to its original on the CPU:
-synthetic bundles and fold masks bit-equal for the same seed, week tables
-equal, netcdf files interchangeable both ways, IRIDL URLs equal.
+`train/splits.py`, `profiling.StageTimer` and the realtime figures'
+`viz/regions.py` and `viz/maps.default_shapes_dir` so that it imports
+nothing of `s2s_ismr_tpu`. These tests hold each copy to its original on
+the CPU: synthetic bundles and fold masks bit-equal for the same seed, week
+tables equal, netcdf files interchangeable both ways, IRIDL URLs equal,
+shapefiles read and rasterized bit-equal (tests/test_regions.py's writers).
 """
 
 import numpy as np
@@ -20,6 +22,8 @@ from s2s_ismr_tpu.field import Field as JField
 from s2s_ismr_tpu.io import read_netcdf as jread
 from s2s_ismr_tpu.io import write_netcdf as jwrite
 from s2s_ismr_tpu.train import splits as jsplits
+from s2s_ismr_tpu.viz import maps as jmaps
+from s2s_ismr_tpu.viz import regions as jregions
 from s2s_ismr_tpu_torch import grid as tgrid
 from s2s_ismr_tpu_torch import profiling as tprofiling
 from s2s_ismr_tpu_torch import timeutils as ttime
@@ -30,6 +34,9 @@ from s2s_ismr_tpu_torch.field import Field as TField
 from s2s_ismr_tpu_torch.io import read_netcdf as tread
 from s2s_ismr_tpu_torch.io import write_netcdf as twrite
 from s2s_ismr_tpu_torch.train import splits as tsplits
+from s2s_ismr_tpu_torch.viz import maps as tmaps
+from s2s_ismr_tpu_torch.viz import regions as tregions
+from test_regions import write_dbf, write_shp
 
 _BUNDLE_FIELDS = ("x", "y", "t", "lats", "lons", "name", "weeks", "years")
 
@@ -204,3 +211,50 @@ def test_stage_timer_summary_schema():
     assert set(st) == set(sj) and st["counters"] == sj["counters"]
     assert set(st["stages_s"]) == set(sj["stages_s"]) == {"nn"}
     assert not hasattr(tprofiling, "trace")
+
+
+def test_shapefile_reader_and_masks_bit_equal(tmp_path):
+    """read_shapefile, region_masks and the .dbf names of the port's
+    viz/regions.py against the JAX module's on a polygon file with a hole
+    and a polyline-free multi-record layout."""
+    shp = str(tmp_path / "r.shp")
+    square = [(10.5, 10.5), (20.5, 10.5), (20.5, 20.5), (10.5, 20.5)]
+    hole = [(13.5, 13.5), (16.5, 13.5), (16.5, 16.5), (13.5, 16.5)]
+    tri = [(30.5, 5.5), (45.5, 5.5), (38.5, 25.5)]
+    write_shp(shp, [[square, hole], [tri]])
+    write_dbf(str(tmp_path / "r.dbf"), ["South", "North West"])
+    a, b = tregions.read_shapefile(shp), jregions.read_shapefile(shp)
+    assert len(a) == len(b) == 2
+    for s, t in zip(a, b):
+        assert s.shape_type == t.shape_type and s.bbox == t.bbox
+        for r, q in zip(s.rings, t.rings, strict=True):
+            np.testing.assert_array_equal(r, q, strict=True)
+    lats, lons = np.arange(0.0, 32.0), np.arange(0.0, 50.0)
+    np.testing.assert_array_equal(tregions.region_masks(shp, lats, lons),
+                                  jregions.region_masks(shp, lats, lons),
+                                  strict=True)
+    assert tregions.region_names_from_dbf(shp) == \
+        jregions.region_names_from_dbf(shp) == ["South", "North West"]
+
+
+def test_default_shapes_dir_as_jax(tmp_path, monkeypatch):
+    """The environment override and a shapes/ dir beside the outputs
+    resolve as in JAX, and the boundary rings read from it are equal."""
+    monkeypatch.delenv("S2S_SHAPES_DIR", raising=False)
+    shapes = tmp_path / "out" / "shapes"
+    shapes.mkdir(parents=True)
+    write_shp(str(shapes / "indian_borders.shp"),
+              [[[(1.0, 1.0), (5.0, 1.0), (5.0, 5.0)]]])
+    root = str(tmp_path / "out")
+    assert tmaps.default_shapes_dir(root) == jmaps.default_shapes_dir(root) \
+        == str(shapes)
+    env = tmp_path / "env"
+    env.mkdir()
+    monkeypatch.setenv("S2S_SHAPES_DIR", str(env))
+    assert tmaps.default_shapes_dir(root) == jmaps.default_shapes_dir(root) \
+        == str(env)
+    for r, q in zip(tmaps._boundary_segments(str(shapes)),
+                    jmaps._boundary_segments(str(shapes)), strict=True):
+        np.testing.assert_array_equal(r, q, strict=True)
+    monkeypatch.delenv("S2S_SHAPES_DIR")
+    assert tmaps.default_shapes_dir(str(tmp_path / "none")) is None

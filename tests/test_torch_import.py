@@ -63,6 +63,35 @@ def test_source_names_no_jax_package(source):
     assert not hits, (source, hits)
 
 
+def test_realtime_path_imports_without_matplotlib():
+    """The card's machine has no matplotlib: with it blocked, the CLI, the
+    realtime pipeline and attrib import, and the realtime CLI's --help
+    runs (only render_figures imports viz, inside the call)."""
+    code = ("import sys\n"
+            "sys.modules['matplotlib'] = None\n"
+            "import s2s_ismr_tpu_torch.run as run\n"
+            "import s2s_ismr_tpu_torch.pipelines.realtime\n"
+            "import s2s_ismr_tpu_torch.attrib\n"
+            "import s2s_ismr_tpu_torch.viz.maps\n"
+            "import s2s_ismr_tpu_torch.viz.regions\n"
+            "try:\n"
+            "    run.main(['realtime', '--help'])\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = [m for m in sys.modules if m.startswith('matplotlib')\n"
+            "       and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "--from-config" in proc.stdout and "--no-indices" in proc.stdout
+    blocked = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.modules['matplotlib'] = "
+         "None; import s2s_ismr_tpu_torch.viz.realtime"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert blocked.returncode != 0 and "matplotlib" in blocked.stderr
+
+
 def test_jax_package_scan_catches_its_imports():
     """The scan above rejects the import forms and lets the port's own
     name through."""

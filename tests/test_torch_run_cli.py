@@ -7,7 +7,10 @@ incremental writes and --resume, failure isolation, the --check gate, the
 the device is explicit (no card and no --cpu exits non-zero), the mode
 flags reach run_pipeline, flags of unported slices are refused naming
 their ROADMAP item, and one real `--cpu` run prints the JAX CLI's summary
-keys.
+keys. The `realtime` subcommand (tests/test_run_cli.py's realtime cases):
+`--source` resolves as in the JAX CLI, its flags reach the entry points as the
+JAX CLI passes them, and a `--cpu` run on converted winners prints the
+paths JSON and writes the JAX CLI's netcdfs within 1e-5.
 """
 
 import json
@@ -19,9 +22,12 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from s2s_ismr_tpu import compile_cache
 from s2s_ismr_tpu import run as jcli
+from s2s_ismr_tpu.pipelines import realtime as jrt
 from s2s_ismr_tpu_torch import run as cli
 from s2s_ismr_tpu_torch.pipelines import CONFIGS
+from s2s_ismr_tpu_torch.pipelines import realtime as trt
 
 # The suite runs in several xdist worker processes on few cores: share the
 # cores among them, or torch's intra-op threads oversubscribe the machine
@@ -59,7 +65,7 @@ def _summary(path):
 def test_list_prints_all_configs(capsys):
     assert cli.main(["--list"]) == 0
     out = capsys.readouterr().out
-    for name in list(CONFIGS) + ["suite"]:
+    for name in list(CONFIGS) + ["suite", "realtime"]:
         assert name in out
 
 
@@ -127,12 +133,112 @@ def test_unported_flags_refused(argv, item, monkeypatch):
         cli.main(["tune_ECMWF_com"] + FAST + argv)
 
 
-@pytest.mark.parametrize("sub, item", [("realtime", "item 14"),
-                                       ("accs", "item 15"),
+@pytest.mark.parametrize("sub, item", [("accs", "item 15"),
                                        ("barplot", "item 15")])
 def test_unported_subcommands_refused(sub, item):
     with pytest.raises(SystemExit, match=item):
         cli.main([sub, "--cpu"])
+
+
+def _paths_json(out):
+    """The paths JSON the realtime subcommand prints after its log."""
+    return json.loads(out[out.index("{\n"):])
+
+
+def test_realtime_subcommand_matches_jax_cli(tmp_path, capsys, monkeypatch):
+    """`realtime --from-config tune_ECMWF_com --synthetic --cpu` on a tree
+    of winners (flax variables saved by the JAX checkpoint; converted and
+    saved by the port's in another root) prints the paths JSON and writes
+    the JAX CLI's netcdfs, values within 1e-5."""
+    from test_torch_realtime import _same_files, _save_winners
+    monkeypatch.setattr(compile_cache, "enable_compilation_cache",
+                        lambda *a, **k: None)
+    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
+    _save_winners(jroot, troot, CONFIGS["tune_ECMWF_com"], "ECMWF", 0)
+    argv = ["realtime", "--from-config", "tune_ECMWF_com", "--synthetic",
+            "--cpu", "--step", "2", "--out"]
+    assert cli.main(argv + [troot]) == 0
+    tpaths = _paths_json(capsys.readouterr().out)
+    assert jcli.main(argv + [jroot]) == 0
+    jpaths = _paths_json(capsys.readouterr().out)
+    assert {"probs", "gradcam", "rpss"} <= set(tpaths)
+    assert all(os.path.isfile(p) for p in tpaths.values())
+    _same_files(tpaths, jpaths, troot, jroot)
+
+
+def _record_entry_points(monkeypatch, pkg):
+    """Replace pkg's realtime entry points by recorders of (name, cfg, args);
+    returns the list they append to."""
+    calls = []
+
+    def fake(name):
+        def entry(cfg, *args, **kw):
+            kw.pop("device", None)
+            calls.append((name, cfg, args, kw))
+            return None, {}
+        return entry
+    for name in ("run_realtime_forecast", "run_realtime_eval"):
+        monkeypatch.setattr(pkg, name, fake(name))
+    return calls
+
+
+@pytest.mark.parametrize("argv, want", [
+    ([], ("run_realtime_eval", "source", "synthetic")),
+    (["--date", "2023-06-15"],
+     ("run_realtime_forecast", "hindcast_source", "iridl")),
+    (["--date", "2023-06-15", "--synthetic"],
+     ("run_realtime_forecast", "hindcast_source", "synthetic")),
+    (["--date", "2023-06-15,2023-06-22", "--no-download", "--no-indices",
+      "--plots", "--week", "wk1", "--standardize", "--predictor",
+      "multi_predictor", "--seed", "3", "--step", "2", "--out", "o"],
+     ("run_realtime_forecast", "hindcast_source", "iridl"))])
+def test_realtime_flags_and_source_resolve_as_jax(argv, want, monkeypatch):
+    """--source defaults to iridl for `realtime --date` and to synthetic
+    everywhere else (s2s_ismr_tpu/run.py:193-198); the realtime flags and
+    cfg overrides reach the entry points as the JAX CLI passes them, on the
+    CPU with --cpu."""
+    monkeypatch.setattr(compile_cache, "enable_compilation_cache",
+                        lambda *a, **k: None)
+    tcalls = _record_entry_points(monkeypatch, trt)
+    jcalls = _record_entry_points(monkeypatch, jrt)
+    base = ["realtime", "--from-config", "tune_GEFS_com"]
+    assert cli.main(base + argv + ["--cpu"]) == 0
+    assert jcli.main(base + argv) == 0
+    (tname, tcfg, targs, tkw), = tcalls
+    (jname, jcfg, jargs, jkw), = jcalls
+    entry, key, source = want
+    assert tname == jname == entry and tkw[key] == jkw[key] == source
+    assert targs == jargs and tkw == jkw
+    for f in ("name", "week", "predictor", "output", "standardize"):
+        assert getattr(tcfg, f) == getattr(jcfg, f), f
+
+
+def test_tune_source_still_defaults_to_synthetic(monkeypatch):
+    seen = []
+
+    def _run(cfg, args, device, **kw):
+        seen.append(args.source)
+        return SimpleNamespace(paths={}, figures={}), {"config": cfg.name}
+    monkeypatch.setattr(cli, "_run", _run)
+    assert cli.main(["tune_ECMWF_com"] + FAST) == 0
+    assert cli.main(["tune_ECMWF_com", "--source", "iridl"] + FAST) == 0
+    assert seen == ["synthetic", "iridl"]
+
+
+def test_realtime_errors(capsys, monkeypatch):
+    """Without --cpu and without a card: exit 2 before any work; an
+    unknown --from-config or week: exit 2; --plots stays refused for the
+    tune run."""
+    calls = _record_entry_points(monkeypatch, trt)
+    assert cli.main(["realtime"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+    assert cli.main(["realtime", "--from-config", "tune_NOPE", "--cpu"]) == 2
+    assert "unknown pipeline" in capsys.readouterr().err
+    assert cli.main(["realtime", "--week", "wk9", "--cpu"]) == 2
+    assert "unknown week" in capsys.readouterr().err
+    assert calls == []
+    with pytest.raises(SystemExit, match="item 15"):
+        cli.main(["tune_ECMWF_com", "--plots"] + FAST)
 
 
 def test_overrides_resolve_like_jax(monkeypatch):
