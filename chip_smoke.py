@@ -60,13 +60,30 @@ line is printed:
      1, GradCAM in [0, 1], RPSS finite on land, launches equal to what its
      forwards and dx launches imply, a repeat bit-equal netcdf by netcdf
      and the same run on the CPU within the tests' tolerances; then
-     GradCAM's time per chunk; then checks that neither jax nor any
-     module of the JAX package (s2s_ismr_tpu) was loaded; the kernels JSON
-     line (launches summed over phases 4, 5, 6 and 8; times and bounds
-     summed over the shapes of phase 3, the forward under ms / plain_ms /
-     library_ms / bound_ms /
-     bound_3xtf32_ms, the dx mode under dx_*), the card line, then the
-     result line {"ok": true, ...}.
+     GradCAM's time per chunk;
+  9. reporting and profiler traces on cuda, in-process: (a) `run.main(
+     ["accs", "--synthetic", "--out", <dir>])` (ECMWF, IITM and GEFS, five
+     lead windows each, 16x16, 2003-2018): 15 ccacc netcdfs of (metric=4,
+     Y, X), CC and ACC finite on land and in [-1, 1], a repeat bit-equal
+     file by file, the same run with --cpu within 1e-5, no conv launch;
+     (b) REL / BSS / RES of phase 7's 10-fold ELR test probabilities (per
+     category) and CC / ACC of one accs bundle (sample and external
+     (53, Y, X) climatology) on cuda against float64 numpy versions of the
+     reference's formulas within 1e-5, against the CPU within 1e-6,
+     repeats bit-equal; (c) analysis.rpss_records over phase 5's outputs
+     (ELR and U-Net, masked by the ELR map): rows per run equal to its
+     finite pixels; (d) the CLI's fast tune run at `--epochs 1`, untraced,
+     then with `--profile <dir>`: a Chrome trace of the ELR stage and one
+     of the NN stage, both parse and hold CUDA kernel events, the conv
+     kernel's events in the NN trace equal to the launches the executed
+     steps imply; each trace's size and write time, and both runs' walls
+     and stages, printed;
+then checks that neither jax nor any module of the JAX package
+(s2s_ismr_tpu) was loaded; prints the kernels JSON line (launches summed
+over phases 4, 5, 6, 8 and 9; times and bounds summed over the shapes of
+phase 3, the forward under ms / plain_ms / library_ms / bound_ms /
+bound_3xtf32_ms, the dx mode under dx_*), the card line, then the result
+line {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -872,9 +889,342 @@ def realtime_path(torch, conv, card, unet_root, cnn_root, tmp):
     return launches
 
 
+ACC_WEEKS = ("wk1", "wk2", "wk3", "wk4", "wk3-4")
+
+
+def stdout_json(fn):
+    """fn() with its standard output captured; returns (its return code,
+    the JSON object it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn()
+    text = buf.getvalue()
+    return rc, json.loads(text[text.index("{"):])
+
+
+def np_bins(p, num_bins=10):
+    """The reference's binning in float64: np.digitize(p, linspace(0, 1,
+    n + 1), right=True) - 1, clipped (plots.py:36-39)."""
+    import numpy as np
+    edges = np.linspace(0, 1, num_bins + 1)
+    return np.clip(np.digitize(p, edges, right=True) - 1, 0, num_bins - 1)
+
+
+def np_scores(p, t):
+    """REL, BSS and RES of plots.py:13-139 in float64 numpy over the
+    entries where both p and t are finite: reliability on the raw
+    probabilities, BSS against the base rate 1/3 and resolution against the
+    observed mean on probabilities scaled by 0.9999999999999."""
+    import numpy as np
+    ok = np.isfinite(p) & np.isfinite(t)
+    p, t = p[ok].astype(np.float64), t[ok].astype(np.float64)
+    out = {}
+    idx = np_bins(p)
+    c = np.bincount(idx, minlength=10).astype(np.float64)
+    sp = np.bincount(idx, weights=p, minlength=10) / np.maximum(c, 1)
+    st = np.bincount(idx, weights=t, minlength=10) / np.maximum(c, 1)
+    out["rel"] = float(((sp - st) ** 2 * c).sum() / c.sum())
+    ps = p * 0.9999999999999
+    out["bss"] = float(1 - np.mean((ps - t) ** 2) / np.mean((1 / 3 - t) ** 2))
+    idx = np_bins(ps)
+    c = np.bincount(idx, minlength=10).astype(np.float64)
+    st = np.bincount(idx, weights=t, minlength=10) / np.maximum(c, 1)
+    out["res"] = float((c * (st - t.mean()) ** 2).sum() / c.sum())
+    return out
+
+
+def np_corr(a, b):
+    """Pearson correlation over axis 0 in float64, skipping samples where
+    either is NaN; NaN with fewer than 2 samples or a zero variance."""
+    import numpy as np
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    ok = np.isfinite(a) & np.isfinite(b)
+    n = ok.sum(0)
+    ma = np.where(ok, a, 0).sum(0) / np.maximum(n, 1)
+    mb = np.where(ok, b, 0).sum(0) / np.maximum(n, 1)
+    da, db = np.where(ok, a - ma, 0), np.where(ok, b - mb, 0)
+    var = np.sqrt((da * da).sum(0) * (db * db).sum(0))
+    with np.errstate(all="ignore"):
+        r = (da * db).sum(0) / np.where(var > 0, var, np.nan)
+    return np.where(n > 1, r, np.nan)
+
+
+def np_weekly(v, weeks):
+    """(53, *S) per-ISO-week means in float64, NaN for empty weeks."""
+    import numpy as np
+    v = v.astype(np.float64)
+    out = np.full((53,) + v.shape[1:], np.nan)
+    for w in range(1, 54):
+        sel = v[weeks == w]
+        if len(sel):
+            with np.errstate(all="ignore"):
+                ok = np.isfinite(sel)
+                n = ok.sum(0)
+                out[w - 1] = np.where(n > 0, np.where(ok, sel, 0).sum(0)
+                                      / np.maximum(n, 1), np.nan)
+    return out
+
+
+def accs_runs(torch, conv, card, work):
+    """(a) of phase 9: the CLI's accs on cuda, a repeat, the same on the
+    CPU."""
+    import numpy as np
+    from s2s_ismr_tpu_torch import run
+    from s2s_ismr_tpu_torch.io import read_netcdf
+
+    def accs(d, *extra):
+        conv.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, paths = stdout_json(lambda: run.main(
+            ["accs", "--synthetic", "--out", d, *extra]))
+        torch.cuda.synchronize()
+        check(rc == 0, f"accs {extra} returned {rc}")
+        return paths, time.perf_counter() - t0, conv.LAUNCHES
+
+    d = os.path.join(work, "accs")
+    paths, seconds, launches = accs(d)
+    check(launches == 0, f"accs launched the conv kernel {launches} times")
+    check(sorted(paths) == ["ECMWF", "GEFS", "IITM"]
+          and all(sorted(v) == sorted(ACC_WEEKS) for v in paths.values()),
+          f"accs paths {paths}")
+    want = sorted(os.path.join(d, "outputs", "ACC", f"{m}_IMD",
+                               f"ccacc_{wk}.nc")
+                  for m in paths for wk in ACC_WEEKS)
+    found = sorted(os.path.join(r, f) for r, _, fs in os.walk(d) for f in fs)
+    check(found == want and sorted(p for v in paths.values()
+                                   for p in v.values()) == want,
+          f"accs files {found}")
+    first = {}
+    for p in want:
+        f = read_netcdf(p)
+        cc, acc, clim = f.values[0], f.values[1], f.values[2]
+        land = np.isfinite(clim)
+        check(f.dims == ("metric", "Y", "X") and f.values.shape[0] == 4
+              and land.any(), f"{p}: dims {f.dims} shape {f.values.shape}")
+        for name, m in (("CC", cc), ("ACC", acc)):
+            check(np.isfinite(m[land]).all()
+                  and np.abs(m[land]).max() <= 1 + 1e-6,
+                  f"{p}: {name} not finite in [-1, 1] on land")
+        first[p] = f.values
+    ymx = f.values.shape[1:]
+    print(f"  (a) accs: {len(want)} ccacc netcdfs of (4, {ymx[0]}, "
+          f"{ymx[1]}), CC/ACC finite in [-1, 1] on land, conv launches 0; "
+          f"wall {seconds:.2f} s on {card}")
+    _, seconds2, _ = accs(d)
+    for p in want:
+        check(read_netcdf(p).values.tobytes() == first[p].tobytes(),
+              f"the accs repeat's {p} differs")
+    dc = os.path.join(work, "accs_cpu")
+    cpu_paths, cpu_s, _ = accs(dc, "--cpu")
+    worst = 0.0
+    for p in want:
+        a, b = first[p], read_netcdf(os.path.join(
+            dc, os.path.relpath(p, d))).values
+        check(np.array_equal(np.isnan(a), np.isnan(b)),
+              f"{p}: NaN pattern differs between cuda and the CPU")
+        worst = max(worst, float(np.nanmax(np.abs(a - b))))
+    check(worst <= 1e-5, f"accs cuda vs CPU {worst:.3e} > 1e-5")
+    print(f"  (a) repeat bit-equal file by file (wall {seconds2:.2f} s); "
+          f"--cpu run {cpu_s:.2f} s, cuda vs CPU max abs diff {worst:.3e}")
+    return launches
+
+
+def metrics_vs_float64(torch, elr):
+    """(b) of phase 9: the port's REL / BSS / RES and CC / ACC on cuda
+    against float64 numpy versions of the reference's formulas, against
+    the CPU, and repeated."""
+    import numpy as np
+    from s2s_ismr_tpu_torch.data import synthetic
+    from s2s_ismr_tpu_torch.ops import metrics
+    from s2s_ismr_tpu_torch.ops.terciles import one_hot_labels
+    from s2s_ismr_tpu_torch.pipelines.notebooks import ACC_LEADS_ECMWF
+
+    def same(a, b):
+        return a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+    worst_o, worst_c = 0.0, 0.0
+    for name, res in elr.items():
+        cfg_o, cfg_c = 0.0, 0.0
+        probs = res.test_probs
+        sel = torch.as_tensor(res.masks.test, device=probs.device)
+        p = torch.cat([probs[f][sel[f]] for f in range(len(sel))])
+        t = one_hot_labels(torch.as_tensor(np.concatenate(
+            [res.labels[f][res.masks.test[f]] for f in range(len(sel))]),
+            device=probs.device))
+        line = []
+        for k in range(3):
+            pk, tk = p[..., k].contiguous(), t[..., k].contiguous()
+            ok = torch.isfinite(pk) & torch.isfinite(tk)
+            want = np_scores(pk.cpu().numpy().ravel(),
+                             tk.cpu().numpy().ravel())
+            for key, fn in (("rel", metrics.reliability_score),
+                            ("bss", metrics.brier_skill_score),
+                            ("res", metrics.resolution_score)):
+                got = fn(pk, tk, ok)
+                check(same(got, fn(pk, tk, ok)),
+                      f"{name} {key}[{k}]: repeat differs")
+                cpu = float(fn(pk.cpu(), tk.cpu(), ok.cpu()))
+                d_o, d_c = abs(float(got) - want[key]), abs(float(got) - cpu)
+                check(d_o <= 1e-5, f"{name} {key}[{k}]: {float(got)!r} vs "
+                      f"float64 {want[key]!r}")
+                check(d_c <= 1e-6, f"{name} {key}[{k}]: cuda {float(got)!r} "
+                      f"vs CPU {cpu!r}")
+                cfg_o, cfg_c = max(cfg_o, d_o), max(cfg_c, d_c)
+                line.append(f"{key}{k} {float(got):.5f}")
+        worst_o, worst_c = max(worst_o, cfg_o), max(worst_c, cfg_c)
+        print(f"  (b) {name} ELR test probabilities, {p.shape[0]} rows of "
+              f"{tuple(p.shape[1:3])}: " + " ".join(line)
+              + f"; max abs diff vs float64 {cfg_o:.3e}, vs CPU {cfg_c:.3e}")
+    lead = ACC_LEADS_ECMWF["wk3-4"]
+    b = synthetic.synthetic_hindcast(model="ECMWF", step=2.0, lead=lead)
+    b1 = synthetic.synthetic_hindcast(model="ECMWF", step=2.0,
+                                      lead=ACC_LEADS_ECMWF["wk1"])
+    xm, y, weeks = b.ensemble_mean(), b.y, b.weeks
+    ext = np_weekly(b1.ensemble_mean(), b1.weeks).astype(np.float32)
+    xd, yd = (torch.as_tensor(v, device="cuda") for v in (xm, y))
+    cases = (
+        ("CC", lambda dev: metrics.masked_corr(xd.to(dev), yd.to(dev)),
+         np_corr(xm, y)),
+        ("ACC sample clim", lambda dev: metrics.anomaly_cc(
+            xd.to(dev), yd.to(dev), weeks),
+         np_corr(xm - np_weekly(xm, weeks)[weeks - 1],
+                 y - np_weekly(y, weeks)[weeks - 1])),
+        ("ACC external (53, Y, X) clim", lambda dev: metrics.anomaly_cc(
+            xd.to(dev), yd.to(dev), weeks, x_clim=ext),
+         np_corr(xm - ext.astype(np.float64)[weeks - 1],
+                 y - np_weekly(y, weeks)[weeks - 1])))
+    for label, fn, want in cases:
+        got = fn("cuda")
+        check(same(got, fn("cuda")), f"{label}: repeat differs")
+        g, c = got.cpu().numpy(), fn("cpu").numpy()
+        check(np.array_equal(np.isnan(g), np.isnan(want))
+              and np.array_equal(np.isnan(g), np.isnan(c)),
+              f"{label}: NaN pattern differs from float64 or the CPU")
+        d_o = float(np.nanmax(np.abs(g - want)))
+        d_c = float(np.nanmax(np.abs(g - c)))
+        check(d_o <= 1e-5, f"{label}: {d_o:.3e} off float64")
+        check(d_c <= 1e-6, f"{label}: cuda vs CPU {d_c:.3e}")
+        worst_o, worst_c = max(worst_o, d_o), max(worst_c, d_c)
+        print(f"  (b) {label} of the accs ECMWF wk3-4 bundle "
+              f"{tuple(y.shape)}: max abs diff vs float64 {d_o:.3e}, vs "
+              f"CPU {d_c:.3e}, land mean {np.nanmean(g):.4f}")
+    print(f"  (b) repeats bit-equal; max abs diff vs float64 {worst_o:.3e} "
+          f"(<= 1e-5), cuda vs CPU {worst_c:.3e} (<= 1e-6)")
+
+
+def rpss_rows(unet_root):
+    """(c) of phase 9: analysis.rpss_records over phase 5's outputs tree,
+    each run's rows against its finite pixels after the ELR mask."""
+    import warnings
+
+    import numpy as np
+    from s2s_ismr_tpu_torch import analysis
+    from s2s_ismr_tpu_torch.io import read_netcdf
+    runs = [{"period_dir": "Common Period/", "model": "ECMWF", "obs": "IMD",
+             "arch": a, "week": "wk3-4", "label": "week 3-4"}
+            for a in ("ELR", "unet")]
+    table = analysis.rpss_records(runs, unet_root)
+    odir = os.path.join(unet_root, "outputs", "Common Period", "ECMWF_IMD")
+
+    def bmean(arch):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            return np.nanmean(read_netcdf(os.path.join(
+                odir, f"{arch}_rpss_test_wk3-4.nc")).values, axis=0)
+    mask = np.isnan(bmean("ELR"))
+    counts = {}
+    for run in runs:
+        v = np.where(mask, np.nan, bmean(run["arch"]))
+        want = int(np.isfinite(v).sum())
+        got = table.subset(arch=run["arch"])
+        counts[run["arch"]] = got.values.size
+        check(got.values.size == want and np.isfinite(got.values).all()
+              and set(got.lead) == {"week 3-4"},
+              f"rpss_records {run['arch']}: {got.values.size} rows, "
+              f"{want} finite pixels after the ELR mask")
+    print(f"  (c) rpss_records over phase 5's outputs: rows {counts}, each "
+          f"equal to its finite pixels after the ELR mask")
+
+
+def traced_run(torch, conv, card, work):
+    """(d) of phase 9: the CLI's fast tune run with --epochs 1, first
+    without, then with --profile; returns the conv launches of both."""
+    import contextlib
+    from s2s_ismr_tpu_torch.pipelines import tune
+
+    argv = ["tune_ECMWF_com", "--synthetic", "--fast", "--epochs", "1"]
+    plain, plain_s, plain_n = cli_run(
+        torch, conv, argv + ["--out", os.path.join(work, "untraced")])
+    check(plain_n == expected_launches(torch, plain)[0],
+          f"untraced run: launches {plain_n}")
+    p, o = os.path.join(work, "trace"), os.path.join(work, "traced")
+    records, real = [], tune.trace
+
+    @contextlib.contextmanager
+    def recording(*args, **kw):
+        with real(*args, **kw) as rec:
+            yield rec
+        if rec is not None:
+            records.append(rec)
+
+    tune.trace = recording
+    try:
+        out, seconds, launches = cli_run(torch, conv, argv + [
+            "--profile", p, "--out", o])
+    finally:
+        tune.trace = real
+    check([r.path for r in records] == [os.path.join(p, "trace.json"),
+                                        os.path.join(p, "nn", "trace.json")],
+          f"traces written: {[r.path for r in records]}")
+    expected, terms = expected_launches(torch, out)
+    check(launches == expected, f"traced run: launches {launches}, "
+          f"expected {expected}")
+    for rec, stage in zip(records, ("ELR", "NN")):
+        t0 = time.perf_counter()
+        with open(rec.path) as fh:
+            events = json.load(fh)["traceEvents"]
+        parse_s = time.perf_counter() - t0
+        kernels = [e for e in events
+                   if str(e.get("cat", "")).lower() == "kernel"]
+        n_conv = sum("conv3x3_mma_kernel" in e.get("name", "")
+                     for e in kernels)
+        print(f"  (d) {stage} trace {os.path.relpath(rec.path, work)}: "
+              f"{rec.bytes} bytes, written in {rec.write_s:.3f} s, parsed "
+              f"in {parse_s:.3f} s; {len(events)} events, {len(kernels)} "
+              f"CUDA kernel events, {n_conv} of the conv kernel")
+        check(kernels, f"the {stage} trace holds no CUDA kernel event")
+        want = expected if stage == "NN" else 0
+        check(n_conv == want, f"{stage} trace: {n_conv} conv kernel "
+              f"events, expected {want} ({terms})")
+    stages = {}
+    for name, run_out in (("untraced", plain), ("traced", out)):
+        with open(run_out.paths["profile"]) as fh:
+            stages[name] = json.load(fh)["stages_s"]
+    print(f"  (d) traced run: wall {seconds:.2f} s (untraced {plain_s:.2f} "
+          f"s), stages {stages['traced']} (untraced {stages['untraced']}; "
+          f"trace writing excluded) on {card}; conv launches {launches} = "
+          f"counted in the NN trace = expected ({terms})")
+    return launches + plain_n
+
+
+def reporting_path(torch, conv, card, unet_root, elr, work):
+    """Phase 9; returns the conv launches of its runs."""
+    t0 = time.perf_counter()
+    launches = accs_runs(torch, conv, card, work)
+    metrics_vs_float64(torch, elr)
+    rpss_rows(unet_root)
+    launches += traced_run(torch, conv, card, work)
+    print(f"  reporting phase: wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
 def elr_cuda_vs_cpu(torch):
     """The ELR branch of the full tune_ECMWF_com and tune_2MME configs
-    (10 folds) on cuda and on the CPU in this process."""
+    (10 folds) on cuda and on the CPU in this process; returns the cuda
+    results by config name."""
     import numpy as np
     from s2s_ismr_tpu_torch.pipelines import get_config
     from s2s_ismr_tpu_torch.pipelines.tune import load_bundles, run_elr_branch
@@ -884,6 +1234,7 @@ def elr_cuda_vs_cpu(torch):
     if os.path.exists(path):
         with open(path) as fh:
             v5e = json.load(fh)["configs"]
+    out = {}
     for name in ("tune_ECMWF_com", "tune_2MME"):
         cfg = get_config(name)
         bundles = load_bundles(cfg)
@@ -913,6 +1264,8 @@ def elr_cuda_vs_cpu(torch):
               f"{v5e.get(name, {}).get('elr_rpss_test_mean')}")
         check(dp <= 1e-4, f"{name}: probabilities differ by {dp:.3e} > 1e-4")
         check(dm <= 1e-5, f"{name}: test RPSS means differ by {dm:.3e}")
+        out[name] = g
+    return out
 
 
 def main():
@@ -928,12 +1281,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        print("[1/8] device")
+        print("[1/9] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/8] build")
+        print("[2/9] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -947,7 +1300,7 @@ def main():
               f"{conv.kernel_chunk()} differ from the wrapper's "
               f"{conv.TILES} / {conv._BK}")
 
-        print("[3/8] kernel vs plain (TF32 off), batch 16")
+        print("[3/9] kernel vs plain (TF32 off), batch 16")
         shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  the cnn's shapes (act none) and the multi_predictor first "
@@ -988,33 +1341,39 @@ def main():
                     times[mode][key] = times[mode].get(key, 0.0) + v
         print(f"  max abs err {max_abs:.3e}")
 
-        print("[4/8] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[4/9] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
         with tempfile.TemporaryDirectory() as work:
             unet_root = os.path.join(work, "tune")
-            print("[5/8] main path: `python -m s2s_ismr_tpu_torch.run "
+            print("[5/9] main path: `python -m s2s_ismr_tpu_torch.run "
                   "tune_ECMWF_com --synthetic --fast` in-process on cuda")
             launches += pipeline_path(torch, conv, card, unet_root)
 
-            print("[6/8] the other run modes of tune_ECMWF_com (fast "
+            print("[6/9] the other run modes of tune_ECMWF_com (fast "
                   "variant) in-process on cuda")
             modes_launches, modes_abs = modes_path(torch, conv, card,
                                                    os.path.join(work, "modes"))
             launches += modes_launches
             max_abs = max(max_abs, modes_abs)
 
-            print("[7/8] ELR branch of the full tune_ECMWF_com and tune_2MME "
+            print("[7/9] ELR branch of the full tune_ECMWF_com and tune_2MME "
                   "(10 folds), cuda vs CPU")
-            elr_cuda_vs_cpu(torch)
+            elr = elr_cuda_vs_cpu(torch)
 
-            print("[8/8] realtime path on cuda: the CLI's `realtime` on "
+            print("[8/9] realtime path on cuda: the CLI's `realtime` on "
                   "phase 5's winners, the cnn's of phase 6, and the "
                   "operational forecast on a fake cache")
             launches += realtime_path(
                 torch, conv, card, unet_root,
                 os.path.join(work, "modes", "cnn"), work)
+
+            print("[9/9] reporting and profiler traces on cuda: the CLI's "
+                  "`accs`, REL/BSS/RES and CC/ACC against float64, RPSS "
+                  "records, and a traced fast tune run")
+            launches += reporting_path(torch, conv, card, unet_root, elr,
+                                       work)
         check("jax" not in sys.modules, "jax was imported")
         jax_pkg = [m for m in sys.modules
                    if m == "s2s_ismr_tpu" or m.startswith("s2s_ismr_tpu.")]

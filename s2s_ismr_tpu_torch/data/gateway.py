@@ -25,7 +25,6 @@ import re
 import subprocess
 
 import numpy as np
-import pandas as pd
 
 from .. import timeutils
 from ..field import Field
@@ -40,6 +39,7 @@ _UNITS_RE = re.compile(r"(\w+)\s+since\s+(.+)")
 
 
 def decode_cf_time(values, units):
+    import pandas as pd
     m = _UNITS_RE.match(units.strip())
     if not m:
         raise ValueError(f"unsupported time units {units!r}")

@@ -64,8 +64,9 @@ class UNet(nn.Module):
         if cfg.compute_dtype not in ("auto", "float32"):
             raise NotImplementedError(
                 f"compute_dtype={cfg.compute_dtype!r}: the port computes in "
-                "float32; bf16 comes with the tensor-core kernel (ROADMAP "
-                "queue B)")
+                "float32; bf16 as the compute dtype of the torch-backend "
+                "convs and transposed convs is still to come (ROADMAP queue "
+                "A item 17)")
         use_kernel = cfg.resolved_backend() == "kernel"
         kw = dict(generator=generator, device=device)
         self.dropout = Dropout(cfg.dropout_rate)

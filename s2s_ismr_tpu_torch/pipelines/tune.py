@@ -35,25 +35,13 @@ from ..grid import check_divisible
 from ..io import write_netcdf
 from ..ops import elr as elr_ops
 from ..ops import metrics, terciles
-from ..profiling import StageTimer
+from ..profiling import StageTimer, trace
 from ..train import checkpoint, splits
 from ..models import UNetConfig
 from ..train.engine import predict
 from ..train.sweep import (SweepResult, TuningGrid, enumerate_trials,
                            run_fixed_training, run_unet_sweep)
 from .configs import PipelineConfig
-
-_LATER = {
-    "plots": "the reporting slice (ROADMAP queue A item 15)",
-    "profile": "the torch.profiler port of profiling.py (ROADMAP queue A "
-               "item 16)",
-}
-
-
-def _later(what, key):
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"{_LATER[key]}")
-
 
 # ----------------------------------------------------------------- data load
 def load_bundles(cfg: PipelineConfig, source="synthetic", seed=0,
@@ -541,14 +529,16 @@ def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
     {arch}_rpss_{train,val,test}_{week}.nc, best_hparams_{week}.json and
     profile_{week}.json; models/{out_dir}{model}_{obs}/{week}/ with the
     winners manifest and weights (none written by 'load', which replays
-    them)."""
+    them).
+
+    make_plots draws the ELR and NN RPSS panels and the per-category
+    NN-vs-ELR reliability diagrams under figures/ (needs matplotlib).
+    profile_dir traces the ELR stage into profile_dir and the NN stage
+    into profile_dir/nn (torch.profiler Chrome traces; a 'load' traces
+    only the ELR stage)."""
     if training_type not in ("tune", "train", "load"):
         raise ValueError(f"training_type must be 'tune', 'train' or "
                          f"'load', got {training_type!r}")
-    if make_plots:
-        raise _later("make_plots", "plots")
-    if profile_dir:
-        raise _later("profile_dir", "profile")
     device = devices.resolve(device)
     timer = StageTimer()
     t_start = time.time()
@@ -575,7 +565,7 @@ def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
     log("########### ELR ###########")
     # each branch ends by copying its RPSS maps to the host, so the stage
     # timers include the device work
-    with timer.stage("elr"):
+    with trace(profile_dir, log, device), timer.stage("elr"):
         elr_res = run_elr_branch(cfg, bundles, log, device=device)
     # on disk before the long NN stage, which may fail
     for tag, fld in [("train", elr_res.rpss_train),
@@ -590,7 +580,8 @@ def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
                                         device=device)
     else:
         log("########### Neural Network ###########")
-        with timer.stage("nn"):
+        with trace(profile_dir and os.path.join(profile_dir, "nn"), log,
+                   device), timer.stage("nn"):
             nn_res = run_nn_branch(cfg, bundles, log, timer=timer,
                                    training_type=training_type,
                                    device=device)
@@ -634,6 +625,27 @@ def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
     paths["profile"] = timer.dump(
         os.path.join(out_dir, f"profile_{cfg.week}.json"))
     log(f"[profile] {json.dumps(timer.summary())}")
+
+    if make_plots:
+        from ..viz import maps, reliability
+        figdir = os.path.join(out_root, "figures", cfg.out_dir,
+                              f"{cfg.result_name}_{cfg.obs}")
+        # the reference overlays shapes/ borders on every RPSS map
+        # (plots.py:417-420,477-480)
+        shapes_dir = maps.default_shapes_dir(out_root)
+        wk = cfg.week.replace("-", "")
+        out.figures.update(maps.plot_rpss_panels(
+            {"Train": elr_res.rpss_train, "Test": elr_res.rpss_test},
+            first.lats, first.lons, figdir, f"{wk}_RPSS_ELR",
+            shapes_dir=shapes_dir))
+        out.figures.update(maps.plot_rpss_panels(
+            {"Train": nn_res.rpss_train, "Validation": nn_res.rpss_val,
+             "Test": nn_res.rpss_test},
+            first.lats, first.lons, figdir, f"{wk}_RPSS_{arch.upper()}",
+            mask=mask, shapes_dir=shapes_dir))
+        out.figures.update(reliability.compare_categories(
+            nn_res, elr_res, mask, cfg, figdir, device=device))
+
     hh = time.strftime("%H:%M:%S", time.gmtime(out.elapsed_s))
     log(f"####### DONE {cfg.name} in {hh} #######")
     return out

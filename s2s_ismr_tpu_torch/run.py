@@ -8,10 +8,13 @@ One entry point runs any registered tune config on one device:
     python -m s2s_ismr_tpu_torch.run suite --configs tune_ECMWF_com,tune_2MME
     python -m s2s_ismr_tpu_torch.run realtime --from-config tune_ECMWF_com \
         --synthetic --out DIR      # after a tune run into the same --out
+    python -m s2s_ismr_tpu_torch.run accs --synthetic --out DIR
+    python -m s2s_ismr_tpu_torch.run barplot --out DIR   # after tune runs
     python -m s2s_ismr_tpu_torch.run --list
 
 The run goes to the GPU (`cuda`) unless `--cpu` is given; without `--cpu`
 and without a card it exits non-zero and never falls back to the CPU.
+`barplot` reads saved outputs on the host and needs no device.
 """
 
 from __future__ import annotations
@@ -22,18 +25,6 @@ import os
 import sys
 import time
 from dataclasses import replace
-
-_LATER = {
-    "reports": "ROADMAP queue A item 15",
-    "profile": "ROADMAP queue A item 16",
-}
-
-
-def _not_ported(what, key):
-    return SystemExit(f"error: {what} is not ported to s2s_ismr_tpu_torch "
-                      f"yet ({_LATER[key]}); the JAX CLI "
-                      f"`python -m s2s_ismr_tpu.run` has it")
-
 
 def _check_suite(results, expected_path):
     """Regression gate (suite --check): per-config elr/nn RPSS test means
@@ -72,7 +63,7 @@ def _run(cfg, args, device, **kw):
     out = tune.run_pipeline(cfg, source=args.source, out_root=args.out,
                             seed=args.seed, synthetic_step=args.step,
                             training_type=args.training_type,
-                            device=device, **kw)
+                            make_plots=args.plots, device=device, **kw)
     return out, {
         "config": cfg.name,
         "elapsed_s": round(out.elapsed_s, 2),
@@ -112,8 +103,8 @@ def _parser():
     ap.add_argument("--fast", action="store_true",
                     help="shrunken smoke variant (2 folds, 2 trials)")
     ap.add_argument("--plots", action="store_true",
-                    help="realtime: render the figures (needs matplotlib); "
-                         "the tune run's plots are not ported yet")
+                    help="render figures (needs matplotlib; the barplot "
+                         "boxplots also pandas and seaborn)")
     ap.add_argument("--out", default=".", help="output root directory")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--step", type=float, default=None,
@@ -147,7 +138,16 @@ def _parser():
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the GPU")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="profiler traces (not ported yet)")
+                    help="write torch.profiler Chrome traces of the ELR "
+                         "stage to DIR/trace.json and of the NN stage to "
+                         "DIR/nn/trace.json (`suite`: DIR/<config>/...)")
+    ap.add_argument("--models", default=None,
+                    help="comma-separated model list for `accs`")
+    ap.add_argument("--fig-format", dest="fig_format", default="png",
+                    choices=("png", "pdf"),
+                    help="accs: figure file format; the reference notebook "
+                         "exports dpi-300 PDFs (ACCs.ipynb cells "
+                         "10-13/23-25/36-38)")
     ap.add_argument("--configs", default=None,
                     help="comma-separated config list for `suite` "
                          "(default: all tune configs)")
@@ -173,21 +173,30 @@ def _parser():
     ap.add_argument("--no-indices", dest="indices", action="store_false",
                     help="realtime: skip RMM/Nino3.4 index acquisition "
                          "(MJO/ENSO composites are then omitted)")
+    ap.add_argument("--shapefile", default=None,
+                    help="barplot: region polygon shapefile for "
+                         "per-region RPSS boxplots (Bar_plot.ipynb "
+                         "cells 12-19)")
+    ap.add_argument("--regions", default=None,
+                    help="barplot: comma-separated region names matching "
+                         "--shapefile polygon order (default: .dbf "
+                         "attribute names, else region{i})")
+    ap.add_argument("--runs", default=None, metavar="JSON",
+                    help="barplot: path to a JSON list of run dicts "
+                         "(period_dir/model/obs/arch/week[/label/period/"
+                         "mask_*]) overriding the default Bar_plot.ipynb "
+                         "cell-5 matrix")
     return ap
-
-
-def _reject_unported(args):
-    if args.config in ("accs", "barplot"):
-        raise _not_ported(f"`{args.config}`", "reports")
-    if args.plots and args.config != "realtime":
-        raise _not_ported("--plots", "reports")
-    if args.profile:
-        raise _not_ported("--profile", "profile")
 
 
 def _check_weeks(args):
     """Validate --week up front; returns an exit code or None."""
     from .pipelines.configs import LEAD_MAPPING
+    if args.config in ("barplot", "accs"):
+        # these aggregate across all weeks; silently ignoring --week would
+        # look like a filter that never applied
+        raise SystemExit(f"--week is not consumed by `{args.config}` "
+                         f"(use --runs to select barplot rows)")
     if args.config != "suite" and "," in args.week:
         raise SystemExit("--week takes a single week outside `suite`")
     wk_list = args.week.split(",")
@@ -267,6 +276,44 @@ def _realtime(args):
     return 0
 
 
+def _stderr(msg):
+    print(msg, file=sys.stderr)
+
+
+def _accs(args):
+    """`accs`: the CC/ACC skill-map sweep (ACCs.ipynb) on the chosen
+    device; logs to stderr, the paths JSON to stdout."""
+    from .pipelines.notebooks import run_accs
+    device = _device(args)
+    if device is None:
+        return 2
+    kw = {}
+    if args.models:
+        kw["models"] = tuple(args.models.split(","))
+    out = run_accs(source=args.source, out_root=args.out, seed=args.seed,
+                   step=args.step or 2.0, make_plots=args.plots,
+                   fig_format=args.fig_format, log=_stderr, device=device,
+                   **kw)
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def _barplot(args):
+    """`barplot`: RPSS boxplots of saved outputs (Bar_plot.ipynb), on the
+    host; logs to stderr, the figure paths JSON to stdout."""
+    from .pipelines.notebooks import run_barplot
+    rnames = tuple(args.regions.split(",")) if args.regions else None
+    runs = None
+    if args.runs:
+        with open(args.runs) as fh:
+            runs = json.load(fh)
+    print(json.dumps(run_barplot(out_root=args.out, runs=runs,
+                                 shapefile=args.shapefile,
+                                 region_names=rnames, log=_stderr),
+                     indent=1))
+    return 0
+
+
 def _suite(args):
     """Several configs (x weeks) in one process; the summary is rewritten
     atomically after every config, so a killed session can --resume."""
@@ -336,8 +383,11 @@ def _suite(args):
                 "partial": partial}
 
     for cfg in [c for c in cfgs if c.name not in results]:
+        kw = {}
+        if args.profile:
+            kw["profile_dir"] = os.path.join(args.profile, cfg.name)
         try:
-            _, results[cfg.name] = _run(cfg, args, device)
+            _, results[cfg.name] = _run(cfg, args, device, **kw)
         except Exception as e:
             # one config must not kill the session; --resume retries it
             results[cfg.name] = {"config": cfg.name,
@@ -371,6 +421,8 @@ def main(argv=None):
             print(f"{name:18s} models={'+'.join(cfg.models):16s} "
                   f"years={cfg.years} week={cfg.week} dir={cfg.out_dir!r}")
         print("suite              run several tune configs in one process")
+        print("accs               CC/ACC skill-map sweep (ACCs.ipynb)")
+        print("barplot            RPSS boxplot aggregation (Bar_plot.ipynb)")
         print("realtime           realtime eval + GradCAM + MJO/ENSO "
               "(Realtime_fcast_MME)")
         return 0
@@ -380,11 +432,20 @@ def main(argv=None):
         # against random-data edges
         args.source = ("iridl" if args.config == "realtime" and args.date
                        else "synthetic")
-    _reject_unported(args)
     if args.week:
         rc = _check_weeks(args)
         if rc is not None:
             return rc
+    if args.profile and not args.fast:
+        print("[warn] --profile records every op and kernel of the run, "
+              "so the trace of a full sweep is very large and slow to "
+              "write. Stage timings (outputs/**/profile_{week}.json) are "
+              "written without it; use --profile with --fast for a trace "
+              "you can open.", file=sys.stderr)
+    if args.config == "accs":
+        return _accs(args)
+    if args.config == "barplot":
+        return _barplot(args)
     if args.config == "suite":
         return _suite(args)
     if args.config == "realtime":
@@ -400,7 +461,7 @@ def main(argv=None):
     device = _device(args)
     if device is None:
         return 2
-    out, summary = _run(cfg, args, device)
+    out, summary = _run(cfg, args, device, profile_dir=args.profile)
     summary["outputs"] = out.paths
     summary["figures"] = out.figures
     print(json.dumps(summary, indent=1))

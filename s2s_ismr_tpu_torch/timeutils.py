@@ -1,7 +1,8 @@
 """ISO-calendar time machinery.
 
-The port's own copy of s2s_ismr_tpu/timeutils.py (numpy only), so the
-port imports nothing of the JAX package.
+The port's own copy of s2s_ismr_tpu/timeutils.py, so the port imports
+nothing of the JAX package. pandas is imported inside the calls that use
+it, so importing the port needs no pandas.
 
 The reference keys its climatological tercile edges on ISO calendar weeks
 (1..53) extracted from the 'T' coordinate with pandas
@@ -15,33 +16,37 @@ the resulting integer week/year vectors ride into the device bundle.
 from __future__ import annotations
 
 import numpy as np
-import pandas as pd
 
 N_ISO_WEEKS = 53
 
 
 def to_datetime64(t):
     """Coerce arbitrary date-like vectors to numpy datetime64[ns]."""
+    import pandas as pd
     return pd.to_datetime(np.asarray(t)).values
 
 
 def iso_week(t):
     """ISO calendar week number (1..53) per timestamp."""
+    import pandas as pd
     idx = pd.DatetimeIndex(to_datetime64(t))
     return idx.isocalendar().week.to_numpy().astype(np.int32)
 
 
 def year(t):
+    import pandas as pd
     idx = pd.DatetimeIndex(to_datetime64(t))
     return idx.year.to_numpy().astype(np.int32)
 
 
 def month(t):
+    import pandas as pd
     idx = pd.DatetimeIndex(to_datetime64(t))
     return idx.month.to_numpy().astype(np.int32)
 
 
 def day_of_year(t):
+    import pandas as pd
     idx = pd.DatetimeIndex(to_datetime64(t))
     return idx.dayofyear.to_numpy().astype(np.int32)
 
@@ -79,6 +84,7 @@ def weekly_mondays(years, season):
     """Weekly (7-day-strided) init dates covering `season` for each year in
     the closed range `years` = (first, last). Used by the synthetic data
     generator to emulate the IRIDL S grid (7-day STEP, dataloader.py:28)."""
+    import pandas as pd
     months = set(season_months(season))
     first, last = years
     out = []

@@ -2,9 +2,8 @@
 composite panels.
 
 The port's own copy of s2s_ismr_tpu/viz/realtime.py (numpy and
-matplotlib). It imports matplotlib when it is imported, so only
-`pipelines.realtime.render_figures` imports it, inside the call: nothing
-else on the realtime path needs matplotlib.
+matplotlib). Each drawing function imports matplotlib inside the call, so
+nothing else on the realtime path needs it.
 
 The reference's Realtime_fcast_MME.ipynb (missing from its snapshot,
 .MISSING_LARGE_BLOBS) delivered *maps* — "GradCAM maps and MJO/ENSO
@@ -20,14 +19,11 @@ import os
 
 import numpy as np
 
-import matplotlib
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-
-from .maps import _boundary_segments  # noqa: E402
+from .maps import _boundary_segments, _pyplot
 
 
 def _panel_grid(n, ncols=4, panel=3.2):
+    plt = _pyplot()
     ncols = max(1, min(ncols, n))
     nrows = -(-n // ncols)
     fig, axes = plt.subplots(nrows, ncols,
@@ -69,7 +65,7 @@ def plot_probability_maps(p_above, lats, lons, path, titles=None,
     fig.colorbar(pm, ax=[a for a in axes], shrink=0.8,
                  label="p(above normal)")
     fig.savefig(path, dpi=dpi, bbox_inches="tight")
-    plt.close(fig)
+    _pyplot().close(fig)
     return path
 
 
@@ -105,7 +101,7 @@ def plot_gradcam_overlays(p_above, cams, lats, lons, path, titles=None,
     fig.colorbar(cam_pm, ax=[a for a in axes], shrink=0.8,
                  label="GradCAM (normalized)")
     fig.savefig(path, dpi=dpi, bbox_inches="tight")
-    plt.close(fig)
+    _pyplot().close(fig)
     return path
 
 
@@ -139,5 +135,5 @@ def plot_composite_panels(composites, lats, lons, path, kind="mjo",
     fig.colorbar(pm, ax=[a for a in axes], shrink=0.8,
                  label="p(above) - 1/3")
     fig.savefig(path, dpi=dpi, bbox_inches="tight")
-    plt.close(fig)
+    _pyplot().close(fig)
     return path

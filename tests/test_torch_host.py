@@ -1,13 +1,18 @@
 """The port's own numpy host layer against the JAX package's.
 
 The port keeps copies of `timeutils`, `grid`, `field`, `io/`, `data/`,
-`train/splits.py`, `profiling.StageTimer` and the realtime figures'
-`viz/regions.py` and `viz/maps.default_shapes_dir` so that it imports
-nothing of `s2s_ismr_tpu`. These tests hold each copy to its original on
+`train/splits.py`, `profiling.StageTimer`, the realtime figures'
+`viz/regions.py` and `viz/maps.default_shapes_dir`, and the numpy parts of
+the reporting slice (`analysis.RpssTable` / `rpss_records`,
+`pipelines.notebooks.default_barplot_runs`, `viz/maps`' levels,
+`viz/reliability._bin_stats`) so that it imports nothing of
+`s2s_ismr_tpu`. These tests hold each copy to its original on
 the CPU: synthetic bundles and fold masks bit-equal for the same seed, week
 tables equal, netcdf files interchangeable both ways, IRIDL URLs equal,
 shapefiles read and rasterized bit-equal (tests/test_regions.py's writers).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -210,7 +215,9 @@ def test_stage_timer_summary_schema():
     st, sj = t.summary(), j.summary()
     assert set(st) == set(sj) and st["counters"] == sj["counters"]
     assert set(st["stages_s"]) == set(sj["stages_s"]) == {"nn"}
-    assert not hasattr(tprofiling, "trace")
+    for mod in (tprofiling, jprofiling):      # trace(None) is a no-op
+        with mod.trace(None) as rec:
+            assert rec is None
 
 
 def test_shapefile_reader_and_masks_bit_equal(tmp_path):
@@ -258,3 +265,48 @@ def test_default_shapes_dir_as_jax(tmp_path, monkeypatch):
         np.testing.assert_array_equal(r, q, strict=True)
     monkeypatch.delenv("S2S_SHAPES_DIR")
     assert tmaps.default_shapes_dir(str(tmp_path / "none")) is None
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 500])
+def test_reliability_curve_binning_bit_equal(rng, n):
+    """viz/reliability._bin_stats, the float64 curve binning with its real
+    edge scaling, including NaN pairs and sparse bins."""
+    from s2s_ismr_tpu.viz import reliability as jrel
+    from s2s_ismr_tpu_torch.viz import reliability as trel
+    p = rng.random(n)
+    t = (rng.random(n) < p).astype(np.float32)
+    p[::5] = np.nan
+    p[1::7] = np.round(p[1::7], 1)            # values at the bin edges
+    for a, b in zip(trel._bin_stats(p, t), jrel._bin_stats(p, t),
+                    strict=True):
+        np.testing.assert_array_equal(a, b, strict=True)
+
+
+def test_reporting_tables_and_matrix_bit_equal(tmp_path):
+    """RpssTable from rpss_records (regions included) and its subset,
+    the Bar_plot.ipynb run matrix, and the CC/ACC levels equal the JAX
+    package's."""
+    from s2s_ismr_tpu import analysis as janalysis
+    from s2s_ismr_tpu.pipelines import notebooks as jnb
+    from s2s_ismr_tpu_torch import analysis as tanalysis
+    from s2s_ismr_tpu_torch.pipelines import notebooks as tnb
+    from test_barplot_matrix import _fake_suite_tree
+    root = str(tmp_path)
+    _fake_suite_tree(root)
+    runs = [r for r in tnb.default_barplot_runs()
+            if r["week"] == "wk3-4" and r["period"] != "2MME"]
+    assert runs == [r for r in jnb.default_barplot_runs()
+                    if r["week"] == "wk3-4" and r["period"] != "2MME"]
+    masks = np.zeros((2, 6, 6), bool)
+    masks[0, :3], masks[1, 3:] = True, True
+    kw = dict(region_masks=masks, region_names=["S", "N"])
+    present = [r for r in runs if os.path.exists(janalysis.rpss_path(
+        root, r["period_dir"], r["model"], r["obs"], r["arch"], r["week"]))]
+    t = tanalysis.rpss_records(present, root, **kw)
+    j = janalysis.rpss_records(present, root, **kw)
+    for sub in ({}, {"region": "N", "model": ("ECMWF", "MME")}):
+        a, b = t.subset(**sub), j.subset(**sub)
+        for f in ("values", "lead", "model", "arch", "region", "period"):
+            np.testing.assert_array_equal(a._col(f), b._col(f), strict=True)
+    assert tmaps.CC_LEVELS == jmaps.CC_LEVELS
+    assert tmaps.ACC_LEVELS == jmaps.ACC_LEVELS

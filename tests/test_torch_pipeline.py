@@ -4,9 +4,12 @@ blending, the skill mask, winner checkpoints and run_pipeline.
 Mirrors tests/test_elr.py::test_elr_folds_end_to_end at full size, the
 checkpoint tests of tests/test_attrib_checkpoint_realtime.py
 (test_checkpoint_roundtrip, test_sweep_winner_save_load,
-test_pipeline_persists_winners) and the outputs-tree checks of
-tests/test_run_cli.py::test_week_override_pipeline_end_to_end. Every port
-call names its device (`device="cpu"`): the library defaults to the card.
+test_pipeline_persists_winners), the outputs-tree checks of
+tests/test_run_cli.py::test_week_override_pipeline_end_to_end, and
+run_pipeline's make_plots figures (against JAX's run_pipeline) and
+profile_dir traces (s2s_ismr_tpu/pipelines/tune.py:786-825, 876-894).
+Every port call names its device (`device="cpu"`): the library defaults
+to the card.
 Tolerances (float32): labels bit-equal; ELR probabilities within 1e-4 and
 RPSS maps within 1e-5 of JAX, NaN pattern identical; a winner reloaded
 from disk predicts bit for bit what the sweep did (same code, same device).
@@ -327,10 +330,60 @@ def test_unknown_training_type_raises():
                              training_type="fit")
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(make_plots=True), "item 15"),
-    (dict(profile_dir="trace"), "item 16")])
-def test_unported_pipeline_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ttune.run_pipeline(_fast_cfg(tconfigs), log=quiet, device="cpu",
-                           **kw)
+@pytest.fixture(scope="module")
+def plotted_run(tmp_path_factory):
+    """run_pipeline with make_plots and profile_dir, one epoch."""
+    root = str(tmp_path_factory.mktemp("plots"))
+    prof = os.path.join(root, "trace")
+    out = ttune.run_pipeline(replace(_fast_cfg(tconfigs), epochs=1),
+                             out_root=root, synthetic_step=2.0, log=quiet,
+                             make_plots=True, profile_dir=prof, device="cpu")
+    return root, prof, out
+
+
+def test_run_pipeline_make_plots_figures_match_jax(plotted_run, tmp_path):
+    """make_plots draws JAX's figure set (tune.py:876-894): the ELR and NN
+    RPSS panels and the three per-category reliability comparisons, under
+    the same paths as JAX's run_pipeline on the same config."""
+    root, _, out = plotted_run
+    jout = jtune.run_pipeline(replace(_fast_cfg(jconfigs), epochs=1),
+                              out_root=str(tmp_path), synthetic_step=2.0,
+                              log=quiet, make_plots=True)
+    rel = {k: os.path.relpath(v, root) for k, v in out.figures.items()}
+    assert rel == {k: os.path.relpath(v, str(tmp_path))
+                   for k, v in jout.figures.items()}
+    assert set(out.figures) == {
+        "wk34_RPSS_ELR", "wk34_RPSS_UNET", "wk3_4_Below_Normal.pdf",
+        "wk3_4_Normal.pdf", "wk3_4_Above_Normal.pdf"}
+    assert all(os.path.getsize(p) > 1000 for p in out.figures.values())
+
+
+def _trace_events(path):
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    assert events
+    return events
+
+
+@pytest.mark.parametrize("training_type", ["tune", "load"])
+def test_run_pipeline_profile_dir_writes_traces(plotted_run, tmp_path,
+                                                training_type):
+    """profile_dir: a Chrome trace of the ELR stage in profile_dir and one
+    of the NN stage in profile_dir/nn (tune.py:786-825); a load traces
+    only the ELR stage. On the CPU the traces hold torch ops only."""
+    root, prof, out = plotted_run
+    if training_type == "load":
+        prof = str(tmp_path / "trace")
+        ttune.run_pipeline(replace(_fast_cfg(tconfigs), epochs=1),
+                           out_root=root, synthetic_step=2.0, log=quiet,
+                           profile_dir=prof, training_type="load",
+                           device="cpu")
+    assert sorted(os.listdir(prof)) == (
+        ["trace.json"] if training_type == "load" else ["nn", "trace.json"])
+    ops = {e.get("name") for e in _trace_events(
+        os.path.join(prof, "trace.json"))}
+    assert not any("conv" in str(n) for n in ops)    # ELR: no convolution
+    if training_type == "tune":
+        nn = _trace_events(os.path.join(prof, "nn", "trace.json"))
+        assert any(e.get("cat") == "cpu_op" for e in nn)
+        assert not any(e.get("cat") == "kernel" for e in nn)   # CPU run

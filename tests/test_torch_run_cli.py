@@ -5,12 +5,17 @@ incremental writes and --resume, failure isolation, the --check gate, the
 --week cross product and single-week keys, error paths — with the port's
 `_run` monkeypatched so no pipeline runs — plus what is the port's own:
 the device is explicit (no card and no --cpu exits non-zero), the mode
-flags reach run_pipeline, flags of unported slices are refused naming
-their ROADMAP item, and one real `--cpu` run prints the JAX CLI's summary
-keys. The `realtime` subcommand (tests/test_run_cli.py's realtime cases):
-`--source` resolves as in the JAX CLI, its flags reach the entry points as the
-JAX CLI passes them, and a `--cpu` run on converted winners prints the
-paths JSON and writes the JAX CLI's netcdfs within 1e-5.
+flags, --plots and --profile reach run_pipeline, and one real `--cpu` run
+with --plots prints the JAX CLI's summary keys and draws its figures. The
+`realtime` subcommand (tests/test_run_cli.py's realtime cases): `--source`
+resolves as in the JAX CLI, its flags reach the entry points as the JAX
+CLI passes them, and a `--cpu` run on converted winners prints the paths
+JSON and writes the JAX CLI's netcdfs within 1e-5. The reporting
+subcommands (tests/test_barplot_matrix.py::test_cli_barplot_runs_override,
+the accs driver): `accs --cpu` writes the JAX CLI's tree and paths JSON,
+netcdfs within 1e-5, and exits 2 without a card; `barplot --runs` prints
+JAX's figure keys on the host; `--week` is refused for both with JAX's
+message.
 """
 
 import json
@@ -65,7 +70,7 @@ def _summary(path):
 def test_list_prints_all_configs(capsys):
     assert cli.main(["--list"]) == 0
     out = capsys.readouterr().out
-    for name in list(CONFIGS) + ["suite", "realtime"]:
+    for name in list(CONFIGS) + ["suite", "accs", "barplot", "realtime"]:
         assert name in out
 
 
@@ -124,20 +129,111 @@ def test_mode_flags_reach_run_pipeline(argv, want, monkeypatch):
     assert kw["device"] == "cpu"
 
 
-@pytest.mark.parametrize("argv, item", [
-    (["--plots"], "item 15"),
-    (["--profile", "trace"], "item 16")])
-def test_unported_flags_refused(argv, item, monkeypatch):
+@pytest.mark.parametrize("argv, want", [
+    (["tune_ECMWF_com", "--plots"],
+     [dict(make_plots=True, profile_dir=None)]),
+    (["tune_ECMWF_com", "--profile", "tr"],
+     [dict(make_plots=False, profile_dir="tr")]),
+    (["suite", "--configs", "tune_ECMWF_com,tune_GEFS_com", "--plots",
+      "--profile", "tr"],
+     [dict(make_plots=True, profile_dir=os.path.join("tr", n))
+      for n in ("tune_ECMWF_com", "tune_GEFS_com")])])
+def test_plots_and_profile_reach_run_pipeline(argv, want, monkeypatch,
+                                              tmp_path):
+    """--plots becomes run_pipeline(make_plots=True); --profile DIR its
+    profile_dir, DIR/<config name> under `suite` (s2s_ismr_tpu/run.py:
+    309-312, 428-430, 474)."""
+    from s2s_ismr_tpu_torch.pipelines import tune
+    seen = []
+
+    def fake_pipeline(cfg, **kw):
+        seen.append({k: kw.get(k) for k in ("make_plots", "profile_dir")})
+        raise RuntimeError("stop")
+    monkeypatch.setattr(tune, "run_pipeline", fake_pipeline)
+    argv = argv + FAST + ["--out", str(tmp_path)]
+    if argv[0] == "suite":
+        assert cli.main(argv) == 1        # each config fails at "stop"
+    else:
+        with pytest.raises(RuntimeError, match="stop"):
+            cli.main(argv)
+    assert seen == want
+
+
+@pytest.mark.parametrize("sub", ["accs", "barplot"])
+def test_week_refused_for_reports(sub, monkeypatch):
+    """`accs` and `barplot` aggregate across weeks: --week is refused with
+    the JAX CLI's message (s2s_ismr_tpu/run.py:161-167)."""
+    monkeypatch.setattr(compile_cache, "enable_compilation_cache",
+                        lambda *a, **k: None)
+    msgs = []
+    for main in (cli.main, jcli.main):
+        with pytest.raises(SystemExit) as e:
+            main([sub, "--week", "wk1", "--cpu"])
+        msgs.append(str(e.value.code))
+    assert msgs[0] == msgs[1] == (f"--week is not consumed by `{sub}` (use "
+                                  f"--runs to select barplot rows)")
+
+
+def test_profile_without_fast_warns(monkeypatch, capsys):
     monkeypatch.setattr(cli, "_run", fake_run([]))
-    with pytest.raises(SystemExit, match=item):
-        cli.main(["tune_ECMWF_com"] + FAST + argv)
+    assert cli.main(["tune_ECMWF_com", "--cpu", "--profile", "tr"]) == 0
+    err = capsys.readouterr().err
+    assert "[warn] --profile" in err and "--fast" in err
+    assert cli.main(["tune_ECMWF_com", "--profile", "tr"] + FAST) == 0
+    assert "[warn]" not in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("sub, item", [("accs", "item 15"),
-                                       ("barplot", "item 15")])
-def test_unported_subcommands_refused(sub, item):
-    with pytest.raises(SystemExit, match=item):
-        cli.main([sub, "--cpu"])
+def test_accs_subcommand_matches_jax_cli(tmp_path, capsys, monkeypatch):
+    """`accs --synthetic --cpu --models ECMWF --step 4` writes the JAX
+    CLI's tree and paths JSON (logs on stderr, the JSON alone on stdout),
+    CC/ACC netcdfs within 1e-5; without --cpu and a card it exits 2."""
+    from test_torch_reports import _same_accs
+    monkeypatch.setattr(compile_cache, "enable_compilation_cache",
+                        lambda *a, **k: None)
+    argv = ["accs", "--synthetic", "--cpu", "--models", "ECMWF", "--step",
+            "4", "--out"]
+    troot, jroot = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert cli.main(argv + [troot]) == 0
+    tcap = capsys.readouterr()
+    assert jcli.main(argv + [jroot]) == 0
+    jcap = capsys.readouterr()
+    tpaths, jpaths = json.loads(tcap.out), json.loads(jcap.out)
+    assert "[accs] ECMWF wk3-4" in tcap.err
+    assert sorted(tpaths["ECMWF"]) == sorted(["wk1", "wk2", "wk3", "wk4",
+                                              "wk3-4"])
+    _same_accs(tpaths, jpaths, troot, jroot)
+    on_disk = sorted(os.path.relpath(os.path.join(r, f), troot)
+                     for r, _, fs in os.walk(troot) for f in fs)
+    assert on_disk == sorted(os.path.relpath(p, troot)
+                             for p in tpaths["ECMWF"].values())
+    assert cli.main(["accs", "--synthetic", "--out", troot]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_cli_barplot_runs_override(tmp_path, capsys, monkeypatch):
+    """`barplot --runs custom.json` drives a user-supplied matrix on the
+    host (no --cpu, no card needed) and prints JAX's figure keys."""
+    from test_barplot_matrix import _write_rpss
+    monkeypatch.setattr(compile_cache, "enable_compilation_cache",
+                        lambda *a, **k: None)
+    out = {}
+    for name, main in (("port", cli.main), ("jax", jcli.main)):
+        root = str(tmp_path / name)
+        _write_rpss(root, "Common Period", "ECMWF", "wk3-4")
+        runs = [{"period_dir": "Common Period/", "period": "Common Period",
+                 "model": "ECMWF", "obs": "IMD", "arch": a, "week": "wk3-4",
+                 "label": "week 3-4"} for a in ("ELR", "unet")]
+        rpath = os.path.join(root, "runs.json")
+        with open(rpath, "w") as fh:
+            json.dump(runs, fh)
+        assert main(["barplot", "--out", root, "--runs", rpath]) == 0
+        cap = capsys.readouterr()
+        assert "[barplot] aggregated 2/2" in cap.err
+        out[name] = {k: v if k == "skipped" else os.path.relpath(v, root)
+                     for k, v in json.loads(cap.out).items()}
+    assert out["port"] == out["jax"]
+    assert out["port"]["skipped"] == [] and set(out["port"]) == {
+        "by_model", "by_lead", "skipped"}
 
 
 def _paths_json(out):
@@ -227,8 +323,8 @@ def test_tune_source_still_defaults_to_synthetic(monkeypatch):
 
 def test_realtime_errors(capsys, monkeypatch):
     """Without --cpu and without a card: exit 2 before any work; an
-    unknown --from-config or week: exit 2; --plots stays refused for the
-    tune run."""
+    unknown --from-config or week: exit 2; --plots is the tune run's too
+    (it draws: test_cpu_run_end_to_end)."""
     calls = _record_entry_points(monkeypatch, trt)
     assert cli.main(["realtime"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
@@ -237,8 +333,14 @@ def test_realtime_errors(capsys, monkeypatch):
     assert cli.main(["realtime", "--week", "wk9", "--cpu"]) == 2
     assert "unknown week" in capsys.readouterr().err
     assert calls == []
-    with pytest.raises(SystemExit, match="item 15"):
-        cli.main(["tune_ECMWF_com", "--plots"] + FAST)
+    seen = []
+
+    def _run(cfg, args, device, **kw):
+        seen.append(args.plots)
+        return SimpleNamespace(paths={}, figures={}), {"config": cfg.name}
+    monkeypatch.setattr(cli, "_run", _run)
+    assert cli.main(["tune_ECMWF_com", "--plots"] + FAST) == 0
+    assert seen == [True]
 
 
 def test_overrides_resolve_like_jax(monkeypatch):
@@ -409,10 +511,12 @@ def test_suite_resume_accumulates_total_and_persists_check(tmp_path,
 
 
 def test_cpu_run_end_to_end(tmp_path, capsys):
-    """A real --cpu run at step 2 (16x16) prints the JAX CLI's summary keys
-    and the outputs it wrote (run.py:313-318, 475-477)."""
+    """A real --cpu --plots run at step 2 (16x16) prints the JAX CLI's
+    summary keys, the outputs it wrote (run.py:313-318, 475-477) and the
+    figures it drew (tune.py:876-894)."""
     assert cli.main(["tune_ECMWF_com", "--synthetic", "--step", "2",
-                     "--epochs", "2", "--out", str(tmp_path)] + FAST) == 0
+                     "--epochs", "2", "--plots", "--out",
+                     str(tmp_path)] + FAST) == 0
     out = capsys.readouterr().out
     summary = json.loads(out[out.index("\n{\n") + 1:])
     assert set(summary) == {"config", "elapsed_s", "elr_rpss_test_mean",
@@ -424,3 +528,12 @@ def test_cpu_run_end_to_end(tmp_path, capsys):
         "elr_train", "elr_test", "winners_ECMWF", "nn_train", "nn_val",
         "nn_test", "hparams", "profile"}
     assert all(os.path.isfile(p) for p in summary["outputs"].values())
+    figdir = os.path.join(str(tmp_path), "figures", "Common Period",
+                          "ECMWF_IMD")
+    assert summary["figures"] == {
+        "wk34_RPSS_ELR": f"{figdir}/wk34_RPSS_ELR.png",
+        "wk34_RPSS_UNET": f"{figdir}/wk34_RPSS_UNET.png",
+        **{f"wk3_4_{c}.pdf": f"{figdir}/wk3_4_{c}.pdf"
+           for c in ("Below_Normal", "Normal", "Above_Normal")}}
+    assert all(os.path.getsize(p) > 1000
+               for p in summary["figures"].values())
