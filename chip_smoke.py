@@ -78,12 +78,34 @@ line is printed:
      kernel's events in the NN trace equal to the launches the executed
      steps imply; each trace's size and write time, and both runs' walls
      and stages, printed;
+  10. batched lanes, the mesh and bf16 on cuda, TF32 off: (a) the conv
+     kernel's lane mode (one launch for L lanes, each with its own
+     weights) at the fast sweep's 11 filters-2 shapes for L = 4 and 20,
+     forward and dx mode, both acts, against the float64 plain lane
+     version (rtol 1e-4 / atol 1e-5), one case with x shared by the lanes,
+     and every lane bit-equal to a one-lane launch of it with the same
+     tile; (b) the device time of the lane mode, of L one-lane launches
+     and of cuDNN's grouped conv (groups = L) in turns, beside L times
+     the one-lane bound; (c) run_unet_sweep of the fast tune_ECMWF_com
+     with learning rates (1e-3, 1e-4) (4 lanes per bucket),
+     lane_dispatch 'vmap', 'serial', 'vmap': launches exact (27 lane-mode
+     launches per batched step, 14 per batched val epoch, 14 one-lane per
+     winner), val tables within 2e-4 and the same winners, the vmap
+     repeat's difference, steps/s of each, and each mode's device idle
+     share over one profiled epoch; (d) run_pipeline(use_mesh=True) on a
+     one-card mesh bit-equal to use_mesh=False (RPSS netcdfs, winner
+     states; --epochs 2, cuDNN deterministic in both); (e) one-epoch sweeps with
+     compute_dtype 'bfloat16' under the kernel and torch backends: finite
+     val losses within 2e-2 of float32;
 then checks that neither jax nor any module of the JAX package
 (s2s_ismr_tpu) was loaded; prints the kernels JSON line (launches summed
-over phases 4, 5, 6, 8 and 9; times and bounds summed over the shapes of
-phase 3, the forward under ms / plain_ms / library_ms / bound_ms /
-bound_3xtf32_ms, the dx mode under dx_*), the card line, then the result
-line {"ok": true, ...}.
+over phases 4, 5, 6, 8, 9 and 10; times and bounds summed over the shapes
+of phase 3, the forward under ms / plain_ms / library_ms / bound_ms /
+bound_3xtf32_ms, the dx mode under dx_*; phase 10's lane mode at L = 4
+under lanes_* (lanes_serial_ms: L one-lane launches, lanes_library_ms:
+cuDNN grouped), at L = 20 under lanes20_*, lanes_launches: the lane-mode
+launches of (c)'s first vmap sweep, and both modes' idle shares), the
+card line, then the result line {"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -1221,6 +1243,296 @@ def reporting_path(torch, conv, card, unet_root, elr, work):
     return launches
 
 
+LANES = (4, 20)          # phase 10 (c)'s lanes per bucket; 20-lane configs
+
+
+def lane_kernel_checks(torch, conv, shapes):
+    """(a) of phase 10: the lane mode (forward and dx mode, ELU and none)
+    against the float64 plain lane version at each shape for L in LANES,
+    each lane its own weights, and one case with x shared by the lanes
+    (lane stride 0); with the tile forced equal, every lane of a lane-mode
+    launch bit-equal to a one-lane launch of that lane. Returns the
+    largest abs error."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+
+    def held(name, got, want):
+        nonlocal worst
+        ea, ex = bench.excess(got, want)
+        check(ex <= 0, f"{name}: lane mode max abs err {ea:.3e} vs float64 "
+              f"exceeds rtol {bench.RTOL} / atol {bench.ATOL}")
+        worst = max(worst, ea)
+
+    for lanes in LANES:
+        for shape in shapes:
+            x, w, b, g = bench.lane_inputs(torch, shape, lanes, gen)
+            n, h, wd, c, o = shape
+            for act in ("elu", "none"):
+                tag = f"L={lanes} {shape} {act}"
+                out = conv._launch_lanes(x, w, b, act)
+                held(f"fwd {tag}", out, conv.conv3x3_bias_act_lanes_plain(
+                    x.double(), w.double(), b.double(), act))
+                dx, gp = conv._launch_dx_lanes(g, out, w, act)
+                dx_w, gp_w = conv.conv3x3_dx_lanes_plain(
+                    g.double(), out.double(), w.double(), act)
+                held(f"dx {tag}", dx, dx_w)
+                held(f"g' {tag}", gp, gp_w)
+                # lane i = the one-lane launch of lane i, same tile
+                tf = conv._pick_tile(n * h * wd, o, 9 * c, 1, lanes)
+                td = conv._pick_tile(n * h * wd, c, 9 * o,
+                                     2 if act == "elu" else 1, lanes)
+                out_t = conv._launch_lanes(x, w, b, act, tile=tf)
+                dx_t, gp_t = conv._launch_dx_lanes(g, out_t, w, act, tile=td)
+                for i in range(lanes):
+                    one = conv._launch(x[i], w[i], b[i], act, tile=tf)
+                    d1, g1 = conv._launch_dx(g[i], out_t[i], w[i], act,
+                                             tile=td)
+                    check(torch.equal(out_t[i], one)
+                          and torch.equal(dx_t[i], d1)
+                          and torch.equal(gp_t[i], g1),
+                          f"{tag}: lane {i} differs from its one-lane "
+                          f"launch with the same tile")
+        print(f"  L = {lanes}: forward, dx and g' at {len(shapes)} shapes x "
+              f"2 acts within rtol {bench.RTOL} / atol {bench.ATOL} of "
+              f"float64; every lane bit-equal to its one-lane launch")
+    shape = shapes[len(shapes) // 2]
+    x, w, b, _ = bench.lane_inputs(torch, shape, LANES[0], gen)
+    shared = conv._launch_lanes(x[0], w, b, "elu")
+    held(f"shared x {shape}", shared, conv.conv3x3_bias_act_lanes_plain(
+        x[0].double(), w.double(), b.double(), "elu"))
+    print(f"  x shared by {LANES[0]} lanes (lane stride 0) at {shape}: "
+          f"within tolerance; max abs err {worst:.3e}")
+    return worst
+
+
+def lane_kernel_times(torch, conv, shapes, card):
+    """(b) of phase 10: device time per call, by torch.profiler, of the
+    lane mode, of L one-lane launches and of cuDNN's grouped F.conv2d
+    (groups = L, TF32 off), in turns (lane mode, one-lane launches,
+    cuDNN, lane mode), forward and dx mode (ELU; cuDNN's dx a grouped conv
+    of g with the adjoint taps), summed over the shapes, with the bound
+    (L times the one-lane bound). Returns {L: {mode: {key: ms}}}."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    res = {}
+    for lanes in LANES:
+        sums = {m: dict.fromkeys(("ms", "serial_ms", "library_ms",
+                                  "bound_ms"), 0.0) for m in ("fwd", "dx")}
+        for shape in shapes:
+            x, w, b, g = bench.lane_inputs(torch, shape, lanes, gen)
+            xg, wg, bg, gg, wa = bench.grouped_layouts(x, w, b, g)
+            with torch.no_grad():
+                out = conv._launch_lanes(x, w, b, "elu")
+                calls = {
+                    "fwd": (lambda: conv._launch_lanes(x, w, b, "elu"),
+                            lambda: [conv._launch(x[i], w[i], b[i], "elu")
+                                     for i in range(lanes)],
+                            lambda: F.conv2d(xg, wg, bg, padding=1,
+                                             groups=lanes)),
+                    "dx": (lambda: conv._launch_dx_lanes(g, out, w, "elu"),
+                           lambda: [conv._launch_dx(g[i], out[i], w[i],
+                                                    "elu")
+                                    for i in range(lanes)],
+                           lambda: F.conv2d(gg, wa, None, padding=1,
+                                            groups=lanes))}
+                for mode, (lane, serial, lib) in calls.items():
+                    t = [bench.device_ms(torch, f)
+                         for f in (lane, serial, lib, lane)]
+                    check(None not in t, f"L={lanes} {shape} {mode}: the "
+                          f"profiler saw no device time")
+                    s = sums[mode]
+                    s["ms"] += (t[0] + t[3]) / 2
+                    s["serial_ms"] += t[1]
+                    s["library_ms"] += t[2]
+                    s["bound_ms"] += lanes * bench.bound(shape,
+                                                         mode == "dx")[0]
+        for mode, s in sums.items():
+            print(f"  L = {lanes} {mode} summed over {len(shapes)} shapes: "
+                  f"lane mode {s['ms']:.4f} ms, {lanes} one-lane launches "
+                  f"{s['serial_ms']:.4f} ms, cuDNN grouped "
+                  f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
+                  f"({s['bound_ms'] / s['ms']:.1%} of it) on {card}")
+        res[lanes] = sums
+    return res
+
+
+def device_busy(torch, fn):
+    """(fn's result, wall s, device busy s) of one run of fn under
+    torch.profiler (CUDA activity only): busy is the sum of the device
+    events' durations (kernels, copies, fills)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    return out, wall, busy / 1e6
+
+
+def lanes_path(torch, conv, card, work):
+    """Phase 10: batched lanes, the one-card mesh and bf16 on cuda.
+    Returns (launches of the sweeps and runs, max abs err, the kernel
+    times of (b), lane-mode launches of (c)'s first vmap run)."""
+    from dataclasses import replace
+
+    import numpy as np
+    from s2s_ismr_tpu_torch.io import read_netcdf
+    from s2s_ismr_tpu_torch.pipelines import get_config, tune
+    from s2s_ismr_tpu_torch.train.engine import deterministic_cudnn
+    from s2s_ismr_tpu_torch.train.sweep import run_unet_sweep
+
+    t0 = time.perf_counter()
+
+    def took(part):
+        print(f"  ({part}) took {time.perf_counter() - t0:.1f} s of phase 10 "
+              f"so far")
+
+    shapes = bench.slice_shapes(torch, (2,), BATCH)
+    print(f"  (a) the lane mode vs float64 at the {len(shapes)} shapes of "
+          f"the fast sweep's U-Net (filters 2, batch {BATCH}), L in {LANES}")
+    max_abs = lane_kernel_checks(torch, conv, shapes)
+    took("a")
+    print(f"  (b) device time per call at those shapes (in turns)")
+    times = lane_kernel_times(torch, conv, shapes, card)
+    took("b")
+
+    cfg = get_config("tune_ECMWF_com").fast_variant()
+    grid = replace(cfg.tuning, learning_rates=(1e-3, 1e-4))
+    bundles = tune.load_bundles(cfg)
+    _, filled, first, fm, _, y_oh, _ = tune._nn_setup(cfg, bundles,
+                                                      lambda s: None, "cuda")
+    x = first.predictor_images("mean")
+    grid = tune.resolve_batch_sizes(grid, x.shape[0])
+    n_conv = 4 * max(grid.n_blocks) + 2
+    launches = 0
+
+    def sweep(mode, epochs=cfg.epochs, **kw):
+        nonlocal launches
+        conv.LAUNCHES = conv.LANE_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_unet_sweep(x, y_oh, fm.train, fm.val, grid, epochs=epochs,
+                             device="cuda", lane_dispatch=mode, **kw)
+        torch.cuda.synchronize()
+        launches += conv.LAUNCHES
+        return res, time.perf_counter() - t0, conv.LAUNCHES, \
+            conv.LANE_LAUNCHES
+
+    print(f"  (c) run_unet_sweep of the fast tune_ECMWF_com ({x.shape[0]} "
+          f"rows of 32x32, {fm.n_folds} folds, learning rates "
+          f"{grid.learning_rates}: {fm.n_folds * len(grid.learning_rates)} "
+          f"lanes per bucket), 'vmap' and 'serial' in turns")
+    runs = {"vmap": [], "serial": []}
+    lane_launches = None
+    for mode in ("vmap", "serial", "vmap"):
+        res, secs, n_launch, n_lane = sweep(mode)
+        F = fm.n_folds
+        if mode == "vmap":
+            bs = res.timings["batched_steps"]
+            be = res.timings["batched_epochs"]
+            want_lane = bs * (2 * n_conv - 1) + be * n_conv
+            check(n_lane == want_lane and n_launch - n_lane == F * n_conv,
+                  f"vmap sweep: {n_lane} lane-mode launches (expected "
+                  f"{want_lane} = {bs} batched steps x {2 * n_conv - 1} + "
+                  f"{be} batched epochs x {n_conv}), {n_launch - n_lane} "
+                  f"one-lane launches (expected {F * n_conv})")
+            lane_launches = n_lane if lane_launches is None else lane_launches
+            terms = (f"{n_lane} lane-mode launches = {bs} batched steps x "
+                     f"{2 * n_conv - 1} + {be} batched epochs x {n_conv}, "
+                     f"{n_launch - n_lane} one-lane (winner forwards)")
+        else:
+            want = (res.train_steps * (2 * n_conv - 1)
+                    + res.epochs_run * n_conv + F * n_conv)
+            check(n_launch == want and n_lane == 0,
+                  f"serial sweep: {n_launch} launches, expected {want}")
+            terms = f"{n_launch} launches, as its steps imply"
+        check(np.isfinite(res.val_loss_table).all(),
+              f"{mode}: non-finite val loss")
+        runs[mode].append((res, secs))
+        print(f"  {mode}: {res.train_steps} steps of {res.epochs_run} lane "
+              f"epochs in {secs:.2f} s = {res.train_steps / secs:.1f} "
+              f"steps/s ({res.timings['execute_s']:.2f} s training); {terms}"
+              f" on {card}")
+    rv, rs = runs["vmap"][0][0], runs["serial"][0][0]
+    dv = float(np.abs(rv.val_loss_table - rs.val_loss_table).max())
+    check(dv <= 2e-4, f"vmap vs serial val tables differ by {dv:.3e}")
+    check([t.index for t in rv.best_trial] == [t.index for t in rs.best_trial],
+          "vmap and serial sweeps pick other winners")
+    # cuDNN is not held deterministic in training (nor is it in JAX's): a
+    # repeat is reported, not required to be bit-equal
+    dr = float(np.abs(runs["vmap"][1][0].val_loss_table
+                      - rv.val_loss_table).max())
+    print(f"  vmap vs serial: val tables within {dv:.3e}, the same winners "
+          f"{[t.index for t in rv.best_trial]}; the vmap repeat within "
+          f"{dr:.3e} of the first")
+    idle = {}
+    for mode in ("vmap", "serial"):
+        (res, _, _, _), wall, busy = device_busy(
+            torch, lambda: sweep(mode, epochs=1))
+        idle[mode] = 1 - busy / wall
+        print(f"  {mode}, one epoch under torch.profiler: {res.train_steps} "
+              f"steps, wall {wall:.2f} s, device busy {busy:.3f} s "
+              f"({busy / res.train_steps * 1e3:.3f} ms per lane step), idle "
+              f"share {idle[mode]:.3f}")
+
+    took("c")
+    print("  (d) run_pipeline(use_mesh=True) of the fast tune_ECMWF_com at "
+          "--epochs 2 on a one-card mesh vs use_mesh=False (cuDNN held "
+          "deterministic in both)")
+    outs = {}
+    for use in (False, True):
+        logs = []
+        root = os.path.join(work, f"mesh_{use}")
+        conv.LAUNCHES = 0
+        t1 = time.perf_counter()
+        with deterministic_cudnn():
+            outs[use] = tune.run_pipeline(
+                replace(cfg, epochs=2), out_root=root, log=logs.append,
+                device="cuda", use_mesh=use)
+        launches += conv.LAUNCHES
+        secs = time.perf_counter() - t1
+        meshed = [s for s in logs if s.startswith("[mesh]")]
+        check(meshed == (["[mesh] sweep lanes sharded over 1 devices"]
+                         if use else []), f"mesh log lines {meshed}")
+        print(f"  use_mesh={use}: wall {secs:.2f} s; {meshed}")
+    a, b = outs[False], outs[True]
+    check(b.nn.sweeps["ECMWF"].timings["lane_dispatch"] == "mesh",
+          "the mesh run did not shard its lanes")
+    for key in a.paths:
+        if key.endswith(("_train", "_val", "_test")):
+            va = read_netcdf(a.paths[key]).values
+            vb = read_netcdf(b.paths[key]).values
+            check(va.tobytes() == vb.tobytes(),
+                  f"one-card mesh: {key} netcdf differs from the serial run")
+    for f, (sa, sb) in enumerate(zip(a.nn.sweeps["ECMWF"].winner_variables,
+                                     b.nn.sweeps["ECMWF"].winner_variables)):
+        check(all(torch.equal(sa[k], sb[k]) for k in sa),
+              f"one-card mesh: fold {f} winner state differs")
+    print("  one-card mesh: RPSS netcdfs and winner states bit-equal to the "
+          "serial run")
+
+    took("d")
+    print("  (e) compute_dtype='bfloat16' under both backends, one epoch "
+          "(first-epoch val losses) against float32")
+    for backend in ("kernel", "torch"):
+        tables = {}
+        for dt in ("float32", "bfloat16"):
+            res, secs, _, _ = sweep("serial", epochs=1, conv_backend=backend,
+                                    compute_dtype=dt)
+            tables[dt] = res.val_loss_table
+        d16 = float(np.abs(tables["bfloat16"] - tables["float32"]).max())
+        check(np.isfinite(tables["bfloat16"]).all() and d16 <= 2e-2,
+              f"bf16 {backend}: val losses {tables['bfloat16']} vs float32 "
+              f"{tables['float32']}")
+        print(f"  {backend}: bf16 first-epoch val losses within {d16:.3e} "
+              f"of float32 ({tables['bfloat16'].ravel().tolist()})")
+    took("e")
+    return launches, max_abs, times, lane_launches, idle
+
+
 def elr_cuda_vs_cpu(torch):
     """The ELR branch of the full tune_ECMWF_com and tune_2MME configs
     (10 folds) on cuda and on the CPU in this process; returns the cuda
@@ -1281,12 +1593,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        print("[1/9] device")
+        print("[1/10] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/9] build")
+        print("[2/10] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -1300,7 +1612,7 @@ def main():
               f"{conv.kernel_chunk()} differ from the wrapper's "
               f"{conv.TILES} / {conv._BK}")
 
-        print("[3/9] kernel vs plain (TF32 off), batch 16")
+        print("[3/10] kernel vs plain (TF32 off), batch 16")
         shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  the cnn's shapes (act none) and the multi_predictor first "
@@ -1341,39 +1653,48 @@ def main():
                     times[mode][key] = times[mode].get(key, 0.0) + v
         print(f"  max abs err {max_abs:.3e}")
 
-        print("[4/9] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[4/10] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
         with tempfile.TemporaryDirectory() as work:
             unet_root = os.path.join(work, "tune")
-            print("[5/9] main path: `python -m s2s_ismr_tpu_torch.run "
+            print("[5/10] main path: `python -m s2s_ismr_tpu_torch.run "
                   "tune_ECMWF_com --synthetic --fast` in-process on cuda")
             launches += pipeline_path(torch, conv, card, unet_root)
 
-            print("[6/9] the other run modes of tune_ECMWF_com (fast "
+            print("[6/10] the other run modes of tune_ECMWF_com (fast "
                   "variant) in-process on cuda")
             modes_launches, modes_abs = modes_path(torch, conv, card,
                                                    os.path.join(work, "modes"))
             launches += modes_launches
             max_abs = max(max_abs, modes_abs)
 
-            print("[7/9] ELR branch of the full tune_ECMWF_com and tune_2MME "
+            print("[7/10] ELR branch of the full tune_ECMWF_com and tune_2MME "
                   "(10 folds), cuda vs CPU")
             elr = elr_cuda_vs_cpu(torch)
 
-            print("[8/9] realtime path on cuda: the CLI's `realtime` on "
+            print("[8/10] realtime path on cuda: the CLI's `realtime` on "
                   "phase 5's winners, the cnn's of phase 6, and the "
                   "operational forecast on a fake cache")
             launches += realtime_path(
                 torch, conv, card, unet_root,
                 os.path.join(work, "modes", "cnn"), work)
 
-            print("[9/9] reporting and profiler traces on cuda: the CLI's "
+            print("[9/10] reporting and profiler traces on cuda: the CLI's "
                   "`accs`, REL/BSS/RES and CC/ACC against float64, RPSS "
                   "records, and a traced fast tune run")
             launches += reporting_path(torch, conv, card, unet_root, elr,
                                        work)
+
+            print("[10/10] batched lanes (the conv kernel's lane mode, "
+                  "lane_dispatch='vmap'), the one-card mesh and bf16 on cuda")
+            t10 = time.perf_counter()
+            lanes_n, lanes_abs, lane_times, lane_launches, idle = \
+                lanes_path(torch, conv, card, work)
+            launches += lanes_n
+            max_abs = max(max_abs, lanes_abs)
+            print(f"  phase 10 wall {time.perf_counter() - t10:.2f} s")
         check("jax" not in sys.modules, "jax was imported")
         jax_pkg = [m for m in sys.modules
                    if m == "s2s_ismr_tpu" or m.startswith("s2s_ismr_tpu.")]
@@ -1384,6 +1705,14 @@ def main():
         return 1
 
     fwd, dx = times["fwd"], times["dx"]
+    lanes = {}
+    for n_lanes, tag in zip(LANES, ("lanes", "lanes20")):
+        for mode, prefix in (("fwd", tag), ("dx", f"{tag}_dx")):
+            t = lane_times[n_lanes][mode]
+            lanes.update({f"{prefix}_ms": t["ms"],
+                          f"{prefix}_serial_ms": t["serial_ms"],
+                          f"{prefix}_library_ms": t["library_ms"],
+                          f"{prefix}_bound_ms": t["bound_ms"]})
     print(json.dumps({"kernels": [{
         "name": "conv3x3_bias_act", "route": "cuda",
         "source": "s2s_ismr_tpu_torch/csrc/conv3x3.cu",
@@ -1397,7 +1726,11 @@ def main():
         "dx_ms": dx["ms"], "dx_plain_ms": dx["plain_ms"],
         "dx_bound_ms": dx["bound_ms"], "dx_library_ms": dx["library_ms"],
         "bound_3xtf32_ms": fwd["bound_3xtf32_ms"],
-        "dx_bound_3xtf32_ms": dx["bound_3xtf32_ms"]}]}))
+        "dx_bound_3xtf32_ms": dx["bound_3xtf32_ms"],
+        "lanes_L": LANES[0], "lanes20_L": LANES[1], **lanes,
+        "lanes_launches": lane_launches,
+        "lanes_idle_share": idle["vmap"],
+        "serial_idle_share": idle["serial"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,10 +17,12 @@ Layout (the hindcast tuning run, U-Net / tune / proba / mean predictor):
   ops        masked quantiles, rolling tercile labels, RPS/RPSS,
              REL/BSS/RES, CC/ACC, the ELR baseline (pixel-parallel IRLS)
              and the MME blend
-  kernels    hand-written CUDA kernels (csrc/) with their plain versions
+  kernels    hand-written CUDA kernels (csrc/) with their plain versions,
+             one lane or L lanes per launch
   models     U-Net with Keras-semantics layers, flax-variable converter
-  train      losses, the training engine, the serial tuning sweep, winner
-             checkpoints
+  train      losses, the training engine, the tuning sweep (lanes serial,
+             batched or over a mesh), winner checkpoints
+  parallel   the lane mesh over the cards of one process
   pipelines  tune configs and the tune pipeline (ELR and NN branches,
              skill mask, outputs tree), realtime, and the notebook drivers
              (accs, barplot)

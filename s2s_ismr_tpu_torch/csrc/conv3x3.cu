@@ -67,8 +67,17 @@
 //     barrier; the blocks of the first output-channel tile write g' once
 //     per pixel (from the centre tap), for dw and db.
 //
+//  7. Lane mode: the counterpart of the Pallas kernel under jax.vmap (the
+//     batching rule adds a lane axis to its grid, so each lane runs with
+//     its own weights). The lane is the grid's z axis; every operand has a
+//     lane stride in floats (64-bit), 0 for an operand all lanes share
+//     (the x of a winner forward). A block reads its lane's operands
+//     through pointers offset once at entry, and does exactly the work of
+//     a one-lane launch of that lane, so with the same tile lane i is bit
+//     for bit the one-lane result. Limits hold per lane.
+//
 // The kernel allocates nothing and runs on the caller's stream. The C entry
-// point returns cudaGetLastError() so the caller can raise on a refused
+// points return cudaGetLastError() so the caller can raise on a refused
 // launch.
 
 #include <cuda_runtime.h>
@@ -99,6 +108,8 @@ constexpr Tile kTiles[] = {
 constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
 
 struct Params {
+  // one lane's operands; lane z reads and writes them offset by z * the
+  // operand's lane stride below
   const float* a;        // (N,H,W,Cin): x (forward) or g (dx mode)
   const float* act_out;  // dx mode, ELU conv: saved output (N,H,W,Cin)
   const float* w;        // (3,3,C,O) of the forward conv
@@ -110,6 +121,8 @@ struct Params {
   float inv_cin, inv_hw, inv_w;   // 1 / Cin, 1 / (H*W), 1 / W for fdiv
   int elu;               // forward: ELU epilogue; dx mode: ELU' on A
   int vec_a, vec_b;      // 16-byte copies for A / B
+  // lane strides in floats (0: shared by every lane)
+  long long lane_a, lane_o, lane_w, lane_b, lane_y, lane_gp;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const float* p) {
@@ -225,6 +238,15 @@ conv3x3_mma_kernel(const Params p) {
   const int wm = (warp % (WM * WN)) / WN, wn = warp % WN;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout, K = p.K;
+  // this block's lane
+  const long long lz = blockIdx.z;
+  const float* const pa = p.a + lz * p.lane_a;
+  const float* const pact = p.act_out + lz * p.lane_o;
+  const float* const pw = p.w + lz * p.lane_w;
+  const float* const pbias =
+      p.bias == nullptr ? nullptr : p.bias + lz * p.lane_b;
+  float* const py = p.y + lz * p.lane_y;
+  float* const pgp = p.gp + lz * p.lane_gp;
   const int nchunks = (K + kBK - 1) / kBK;
 
   // ---- A gather: pixel coordinates of this thread's rows, packed h<<16|w;
@@ -259,9 +281,9 @@ conv3x3_mma_kernel(const Params p) {
         const int hh = (hw[i] >> 16) + dy, ww = (hw[i] & 0xffff) + dx;
         const bool v = kv && hh >= 0 && hh < H && ww >= 0 && ww < W;
         const int off = v ? (m0 + r) * Cin + delta : 0;
-        cp_async16(As + r * kRowStride + 4 * q, p.a + off, v ? 16 : 0);
+        cp_async16(As + r * kRowStride + 4 * q, pa + off, v ? 16 : 0);
         if (has_o)
-          cp_async16(Os + r * kRowStride + 4 * q, p.act_out + off,
+          cp_async16(Os + r * kRowStride + 4 * q, pact + off,
                      v ? 16 : 0);
       }
     } else {
@@ -279,9 +301,9 @@ conv3x3_mma_kernel(const Params p) {
         const int hh = h + dy, ww = w + dx;
         const bool v = k < K && hh >= 0 && hh < H && ww >= 0 && ww < W;
         const int off = v ? (m + dy * W + dx) * Cin + ci : 0;
-        cp_async4(As + r * kRowStride + kk0 + j, p.a + off, v ? 4 : 0);
+        cp_async4(As + r * kRowStride + kk0 + j, pa + off, v ? 4 : 0);
         if (has_o)
-          cp_async4(Os + r * kRowStride + kk0 + j, p.act_out + off,
+          cp_async4(Os + r * kRowStride + kk0 + j, pact + off,
                     v ? 4 : 0);
         if (++ci == Cin) { ci = 0; ++tap; }
       }
@@ -294,14 +316,14 @@ conv3x3_mma_kernel(const Params p) {
           const int kk = idx / (BN / 4), n = 4 * (idx % (BN / 4));
           const bool v = k0 + kk < K && n0 + n < Cout;
           const int off = v ? (k0 + kk) * Cout + n0 + n : 0;
-          cp_async16(Bs + kk * SB + n, p.w + off, v ? 16 : 0);
+          cp_async16(Bs + kk * SB + n, pw + off, v ? 16 : 0);
         }
       } else {
         for (int idx = tid; idx < kBK * BN; idx += kThreads) {
           const int kk = idx / BN, n = idx % BN;
           const bool v = k0 + kk < K && n0 + n < Cout;
           const int off = v ? (k0 + kk) * Cout + n0 + n : 0;
-          cp_async4(Bs + kk * SB + n, p.w + off, v ? 4 : 0);
+          cp_async4(Bs + kk * SB + n, pw + off, v ? 4 : 0);
         }
       }
     } else {
@@ -314,7 +336,7 @@ conv3x3_mma_kernel(const Params p) {
           const int tap = v ? fdiv(k, p.inv_cin) : 0;
           const int off = v ? ((8 - tap) * Cout + n0 + n) * Cin
                                   + (k - tap * Cin) : 0;
-          cp_async16(Bs + n * SB + kk, p.w + off, v ? 16 : 0);
+          cp_async16(Bs + n * SB + kk, pw + off, v ? 16 : 0);
         }
       } else {
         for (int idx = tid; idx < BN * kBK; idx += kThreads) {
@@ -324,7 +346,7 @@ conv3x3_mma_kernel(const Params p) {
           const int tap = v ? fdiv(k, p.inv_cin) : 0;
           const int off = v ? ((8 - tap) * Cout + n0 + n) * Cin
                                   + (k - tap * Cin) : 0;
-          cp_async4(Bs + n * SB + kk, p.w + off, v ? 4 : 0);
+          cp_async4(Bs + n * SB + kk, pw + off, v ? 4 : 0);
         }
       }
     }
@@ -390,7 +412,7 @@ conv3x3_mma_kernel(const Params p) {
         const int r = idx / kBK, kk = idx % kBK;
         const int k = k0 + kk;
         if (k >= kc0 && k < kc1 && m0 + r < p.M)
-          p.gp[(m0 + r) * Cin + (k - kc0)] =
+          pgp[(m0 + r) * Cin + (k - kc0)] =
               As[r * kRowStride + kk];
       }
     }
@@ -501,7 +523,7 @@ conv3x3_mma_kernel(const Params p) {
     for (int h2 = 0; h2 < 2; ++h2) {
       const int m = m0 + wm * TM + i * 16 + gid + 8 * h2;
       if (m >= p.M) continue;
-      float* row = p.y + m * Cout;
+      float* row = py + m * Cout;
 #pragma unroll
       for (int j = 0; j < NI; ++j) {
         const int n = n0 + wn * TN + j * 8 + 2 * tig;
@@ -510,7 +532,7 @@ conv3x3_mma_kernel(const Params p) {
         for (int e = 0; e < 2; ++e) {
           float v = acc[i][j][2 * h2 + e];
           if (!DX) {
-            if (p.bias != nullptr && n + e < Cout) v += p.bias[n + e];
+            if (pbias != nullptr && n + e < Cout) v += pbias[n + e];
             if (p.elu) v = v > 0.f ? v : expm1f(v);
           }
           z[e] = v;
@@ -526,23 +548,32 @@ conv3x3_mma_kernel(const Params p) {
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 template <int BM, int BN, int WM, int WN, bool DX>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch(const Params& p, int lanes, cudaStream_t stream) {
   constexpr int KS = kThreads / 32 / (WM * WN);
   const bool has_o = DX && p.elu;
   const int pipe = stages<BM, BN, DX>() * stage_floats<BM, BN, DX>(has_o);
   const int red = (KS - 1) * BM * BN;
   const size_t bytes = sizeof(float) * (pipe > red ? pipe : red);
   auto kernel = conv3x3_mma_kernel<BM, BN, WM, WN, DX>;
-  static size_t allowed = 48 * 1024;
-  if (bytes > allowed) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
+  // the shared-memory limit is an attribute of the kernel on each device
+  // (lanes of a mesh run on several cards, from several host threads:
+  // setting it twice is harmless)
+  static size_t allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes > 48 * 1024 && bytes > allowed[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
     if (e != cudaSuccess) return e;
-    allowed = bytes;
+    allowed[dev] = bytes;
   }
-  dim3 grid((p.M + BM - 1) / BM, (p.Cout + BN - 1) / BN);
+  dim3 grid((p.M + BM - 1) / BM, (p.Cout + BN - 1) / BN, lanes);
   kernel<<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
@@ -550,12 +581,12 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 static_assert(kNumTiles == 10, "dispatch lists every tile");
 
 template <bool DX>
-cudaError_t dispatch(int tile, const Params& p, cudaStream_t s) {
+cudaError_t dispatch(int tile, const Params& p, int lanes, cudaStream_t s) {
   switch (tile) {
 #define S2S_TILE(I)                                                     \
   case I:                                                               \
     return launch<kTiles[I].bm, kTiles[I].bn, kTiles[I].wm, kTiles[I].wn, \
-                  DX>(p, s);
+                  DX>(p, lanes, s);
     S2S_TILE(0) S2S_TILE(1) S2S_TILE(2) S2S_TILE(3) S2S_TILE(4)
     S2S_TILE(5) S2S_TILE(6) S2S_TILE(7) S2S_TILE(8) S2S_TILE(9)
 #undef S2S_TILE
@@ -581,18 +612,23 @@ int s2s_conv3x3_tile(int i, int* bm, int* bn, int* wm, int* wn) {
 // k values per chunk of the K loop, for the wrapper's cost model.
 int s2s_conv3x3_chunk() { return kBK; }
 
-// One launch. All tensors contiguous float32 on the device.
+// One launch over `lanes` lanes (grid z; 1 for a one-lane launch). All
+// tensors contiguous float32 on the device; lane z of an operand starts
+// `lane_*` floats after lane 0 (0 for an operand every lane shares; a NULL
+// operand's stride is ignored).
 //   forward (dx = 0): a = x (N,H,W,Cin), w (3,3,Cin,Cout), b (Cout,) or
 //     NULL, y (N,H,W,Cout); act_out and gp NULL; elu = ELU epilogue.
 //   dx mode (dx = 1): a = g (N,H,W,Cin) with Cin = the forward's O, w the
 //     forward's (3,3,Cout,Cin) as it is, y = dx (N,H,W,Cout); for an ELU
 //     conv (elu = 1) act_out = the saved forward output (N,H,W,Cin) and
 //     gp = g' (N,H,W,Cin) is written; b NULL.
-// Limits (checked by the caller): 1 <= Cin, Cout <= 384; H, W <= 16384;
-// N*H*W <= 2,000,000 (fdiv, 32-bit indices).
+// Limits (checked by the caller), per lane: 1 <= Cin, Cout <= 384;
+// H, W <= 16384; N*H*W <= 2,000,000 (fdiv, 32-bit indices); lanes <= 65535.
 int s2s_conv3x3_f32(const float* a, const float* act_out, const float* w,
                     const float* b, float* y, float* gp, int N, int H, int W,
-                    int Cin, int Cout, int dx, int elu, int tile,
+                    int Cin, int Cout, int dx, int elu, int tile, int lanes,
+                    long long lane_a, long long lane_o, long long lane_w,
+                    long long lane_b, long long lane_y, long long lane_gp,
                     void* stream) {
   Params p;
   p.a = a; p.act_out = act_out; p.w = w; p.bias = b; p.y = y; p.gp = gp;
@@ -604,11 +640,19 @@ int s2s_conv3x3_f32(const float* a, const float* act_out, const float* w,
   p.elu = elu;
   p.vec_a = Cin % 4 == 0;
   p.vec_b = dx ? Cin % 4 == 0 : Cout % 4 == 0;
+  p.lane_a = lane_a;
+  p.lane_o = act_out == nullptr ? 0 : lane_o;
+  p.lane_w = lane_w;
+  p.lane_b = b == nullptr ? 0 : lane_b;
+  p.lane_y = lane_y;
+  p.lane_gp = gp == nullptr ? 0 : lane_gp;
   if (dx && elu && (act_out == nullptr || gp == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes < 1 || lanes > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dx ? dispatch<true>(tile, p, s)
-                             : dispatch<false>(tile, p, s));
+  return static_cast<int>(dx ? dispatch<true>(tile, p, lanes, s)
+                             : dispatch<false>(tile, p, lanes, s));
 }
 
 const char* s2s_cuda_error_string(int code) {

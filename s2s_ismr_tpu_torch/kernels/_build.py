@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
+_lock = threading.Lock()     # lanes of a mesh launch from several threads
 
 
 def _sources():
@@ -73,10 +75,14 @@ def build() -> dict:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
         lib = ctypes.CDLL(build()["path"])
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.s2s_conv3x3_f32.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.s2s_conv3x3_f32.argtypes = [vp] * 6 + [ci] * 9 + [cl] * 6 + [vp]
         lib.s2s_conv3x3_f32.restype = ci
         pi = ctypes.POINTER(ci)
         lib.s2s_conv3x3_tile.argtypes = [ci, pi, pi, pi, pi]

@@ -1,5 +1,5 @@
 """Fused 3x3 conv + bias + ELU: the hand-written CUDA kernel
-(csrc/conv3x3.cu) with its autograd Function and its plain PyTorch
+(csrc/conv3x3.cu) with its autograd Functions and its plain PyTorch
 versions.
 
 Port of s2s_ismr_tpu/kernels/conv.py. Layouts are the JAX ones: x NHWC
@@ -11,19 +11,35 @@ g' (taps rotated 180 degrees, C<->O transposed); dw (the 3x3 patches
 contracted with g', one matmul) and db (sum of g') are plain torch ops, as
 they were XLA ops in JAX. On a CUDA tensor dx is the kernel's dx mode: one
 launch that reads the forward's taps and the saved output as they are and
-also writes g'. A conv whose input needs no gradient (the U-Net's first)
-computes g' with torch ops.
+also writes g'. The dx mode is a Function of its own (`Conv3x3Dx`), called
+from the conv's backward. A conv whose input needs no gradient (the U-Net's
+first) computes g' with torch ops.
+
+Lane mode, the counterpart of the Pallas kernel under `jax.vmap` (batched
+lanes: folds x learning rates of one sweep bucket, each with its own
+weights). Both Functions work under `torch.func` transforms: `forward`
+takes no ctx, `setup_context` saves what the backward needs, and a `vmap`
+rule moves each batched operand's lane dim to the front, leaves a shared
+operand as it is (lane stride 0 in the kernel) and makes ONE lane-mode
+launch for all L lanes (forward or dx mode; the lane is the grid's z
+axis). So `torch.func.vmap(torch.func.grad(loss))` issues the same number
+of launches per step as one lane does. dw and db stay torch ops, which
+vmap turns into batched products. Only one level of vmap is batched into
+the kernel (the sweep flattens folds x learning rates into one lane axis).
 
 Dispatch: on a CPU tensor the inner calls are the plain versions
-(`conv3x3_bias_act_plain`, `conv3x3_dx_plain`); on a CUDA tensor they are
-the kernel, or an exception. `LAUNCHES` counts kernel launches (a dx
-launch counts one).
+(`conv3x3_bias_act_plain`, `conv3x3_dx_plain`, and for lanes
+`conv3x3_bias_act_lanes_plain`, `conv3x3_dx_lanes_plain`, loops over
+lanes); on a CUDA tensor they are the kernel, or an exception. `LAUNCHES`
+counts kernel launches (a dx launch counts one, a lane-mode launch one);
+`LANE_LAUNCHES` counts those of them that ran more than one lane.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +47,10 @@ import torch.nn.functional as F
 from . import _build
 
 LAUNCHES = 0
+LANE_LAUNCHES = 0
+_COUNT = threading.Lock()   # lanes of a mesh launch from several threads
 MAX_CHANNELS = 384
+MAX_LANES = 65535           # the grid's z extent
 _MAX_SIDE = 16384
 MAX_PIXELS = 2_000_000      # N*H*W: the kernel's fdiv and 32-bit indices
 _ACTS = ("elu", "none")
@@ -55,20 +74,21 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def tile_cost(tile, m, n, k, a_streams=1, cost=COST):
+def tile_cost(tile, m, n, k, a_streams=1, cost=COST, lanes=1):
     """Modelled device us of one launch with `tile` for the (m x k) @
     (k x n) GEMM: a fixed part, plus the K chunks of one block, each a
     fixed part and its warps' mma (3 per m16n8k8 step), stretched by the
     waves of blocks past one per SM, plus the bytes the A gathers read
     (every n tile reads A again; the dx mode of an ELU conv reads g and
-    the saved output, a_streams = 2)."""
+    the saved output, a_streams = 2). A lane-mode launch of `lanes` lanes
+    has `lanes` times the blocks and the bytes."""
     fixed, per_chunk, per_mma, per_mb = cost
     bm, bn, wm, wn = tile
     ks = 4 // (wm * wn)
     mma = _cdiv(_BK // 8, ks) * (bm // wm // 16) * (bn // wn // 8) * 3
-    blocks = _cdiv(m, bm) * _cdiv(n, bn)
+    blocks = _cdiv(m, bm) * _cdiv(n, bn) * lanes
     waves = max(1.0, blocks / _SMS)
-    mb = (_cdiv(n, bn) * m * k * a_streams + m * n) * 4 / 1e6
+    mb = lanes * (_cdiv(n, bn) * m * k * a_streams + m * n) * 4 / 1e6
     return (fixed + waves * _cdiv(k, _BK) * (per_chunk + per_mma * mma)
             + per_mb * mb)
 
@@ -91,11 +111,11 @@ def kernel_chunk():
 
 
 @functools.lru_cache(maxsize=None)
-def _pick_tile(m, n, k, a_streams=1):
+def _pick_tile(m, n, k, a_streams=1, lanes=1):
     """The tile of the least modelled time (tile_cost); ties go to the
     earlier tile. Cached: a model has a few shapes and launches each many
     times."""
-    costs = [tile_cost(t, m, n, k, a_streams) for t in TILES]
+    costs = [tile_cost(t, m, n, k, a_streams, lanes=lanes) for t in TILES]
     return costs.index(min(costs))
 
 
@@ -126,6 +146,38 @@ def conv3x3_dx_plain(g, out, w, act="elu"):
     return conv3x3_bias_act_plain(g, w_adj, None, "none"), g
 
 
+def _expand(t, lanes, ndim):
+    """t with a leading lane dim: as it is when it has one (rank ndim + 1),
+    else the one-lane operand broadcast to `lanes` lanes."""
+    if t is None or t.ndim == ndim + 1:
+        return t
+    return t.expand((lanes,) + tuple(t.shape))
+
+
+def conv3x3_bias_act_lanes_plain(x, w, b, act="elu"):
+    """The lane mode with F.conv2d, lane after lane: x (L, N, H, W, C) or
+    (N, H, W, C) shared, w (L, 3, 3, C, O) or shared, b (L, O), (O,) or
+    None. Returns (L, N, H, W, O)."""
+    lanes = next(t.shape[0] for t, d in ((x, 4), (w, 4), (b, 1))
+                 if t is not None and t.ndim == d + 1)
+    x, w, b = _expand(x, lanes, 4), _expand(w, lanes, 4), _expand(b, lanes, 1)
+    return torch.stack([conv3x3_bias_act_plain(
+        x[i], w[i], None if b is None else b[i], act) for i in range(lanes)])
+
+
+def conv3x3_dx_lanes_plain(g, out, w, act="elu"):
+    """The dx mode's lane mode with F.conv2d, lane after lane: g and out
+    (L, N, H, W, O) or shared, w (L, 3, 3, C, O) or shared. Returns (dx
+    (L, N, H, W, C), g' (L, N, H, W, O))."""
+    lanes = next(t.shape[0] for t in (g, out, w)
+                 if t is not None and t.ndim == 5)
+    g, out, w = (_expand(t, lanes, 4) for t in (g, out, w))
+    pairs = [conv3x3_dx_plain(g[i], None if out is None else out[i], w[i],
+                              act) for i in range(lanes)]
+    return (torch.stack([p[0] for p in pairs]),
+            torch.stack([p[1] for p in pairs]))
+
+
 def _check(name, t, device):
     if not t.is_cuda or t.device != device:
         raise ValueError(f"conv3x3 kernel: {name} must be on {device}")
@@ -136,7 +188,7 @@ def _check(name, t, device):
         raise ValueError(f"conv3x3 kernel: {name} must be contiguous")
 
 
-def _check_sizes(n, h, wd, cin, cout):
+def _check_sizes(n, h, wd, cin, cout, lanes=1):
     if not (1 <= cin <= MAX_CHANNELS and 1 <= cout <= MAX_CHANNELS):
         raise ValueError(f"conv3x3 kernel takes 1 <= C, O <= {MAX_CHANNELS}; "
                          f"got {cin}, {cout}")
@@ -144,102 +196,203 @@ def _check_sizes(n, h, wd, cin, cout):
         raise ValueError(f"conv3x3 kernel takes H, W <= {_MAX_SIDE}")
     if n * h * wd > MAX_PIXELS:
         raise ValueError(f"conv3x3 kernel takes N*H*W <= {MAX_PIXELS}")
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"conv3x3 kernel takes 1 <= lanes <= {MAX_LANES}; "
+                         f"got {lanes}")
 
 
-def _run(a, act_out, w, b, y, gp, dx_mode, elu, tile):
-    global LAUNCHES
-    n, h, wd, cin = a.shape
-    cout = y.shape[3]
+def _lane_stride(t, ndim):
+    """Floats between lanes of operand t: its one-lane size when it has a
+    lane dim (rank ndim + 1), 0 when every lane shares it (or it is
+    None)."""
+    return 0 if t is None or t.ndim == ndim else t.numel() // t.shape[0]
+
+
+def _count(lanes):
+    """One more launch in the counters (under a lock: the lanes of a mesh
+    launch from a host thread per card)."""
+    global LAUNCHES, LANE_LAUNCHES
+    with _COUNT:
+        LAUNCHES += 1
+        LANE_LAUNCHES += lanes > 1
+
+
+def _run(a, act_out, w, b, y, gp, dims, dx_mode, elu, tile, lanes=1):
+    """One launch over `lanes` lanes; `dims` (N, H, W, Cin, Cout) are one
+    lane's. Each operand has a lane dim, or is shared by the lanes."""
+    n, h, wd, cin, cout = dims
     if tile is None:
         tile = _pick_tile(n * h * wd, cout, 9 * cin,
-                          2 if dx_mode and elu else 1)
+                          2 if dx_mode and elu else 1, lanes)
+    strides = (_lane_stride(a, 4), _lane_stride(act_out, 4),
+               _lane_stride(w, 4), _lane_stride(b, 1), _lane_stride(y, 4),
+               _lane_stride(gp, 4))
     lib = _build.library()
     ptr = (lambda t: None if t is None else t.data_ptr())
-    with torch.cuda.device(a.device):
+    with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.s2s_conv3x3_f32(
             ptr(a), ptr(act_out), ptr(w), ptr(b), ptr(y), ptr(gp),
-            n, h, wd, cin, cout, int(dx_mode), int(elu), tile, stream)
-    LAUNCHES += 1
+            n, h, wd, cin, cout, int(dx_mode), int(elu), tile, lanes,
+            *strides, stream)
+    _count(lanes)
     if rc != 0:
         msg = lib.s2s_cuda_error_string(rc).decode()
         raise RuntimeError(f"conv3x3 kernel launch failed: {msg} ({rc})")
 
 
-def _launch(x, w, b, act, tile=None):
-    """The forward: act(conv3x3(x, w) + b) in one launch."""
-    n, h, wd, c = x.shape
-    o = w.shape[3]
+def _lanes_of(ops, lanes):
+    """The lane count of a launch: `lanes` when given, else the leading dim
+    of the operands that have a lane dim (they must agree). ops: (name,
+    tensor or None, one-lane rank)."""
+    found = {t.shape[0] for _, t, d in ops
+             if t is not None and t.ndim == d + 1}
+    if lanes is not None:
+        found.add(lanes)
+    if len(found) != 1:
+        raise ValueError(f"conv3x3 kernel: lane counts {sorted(found)} of "
+                         + ", ".join(f"{name} {tuple(t.shape)}"
+                                     for name, t, _ in ops if t is not None))
+    return found.pop()
+
+
+def _launch_lanes(x, w, b, act, lanes=None, tile=None):
+    """The forward over lanes: act(conv3x3(x, w) + b) of every lane in one
+    launch. x (L, N, H, W, C) or (N, H, W, C) shared, w (L, 3, 3, C, O) or
+    shared, b (L, O), (O,) or None; L from the lane dims, or `lanes` when
+    every operand is shared. Returns (L, N, H, W, O)."""
+    lanes = _lanes_of((("x", x, 4), ("w", w, 4), ("b", b, 1)), lanes)
+    n, h, wd, c = x.shape[-4:]
+    o = w.shape[-1]
     for name, t in (("x", x), ("w", w), ("b", b)):
         if t is not None:
             _check(name, t, x.device)
-    if w.shape[:3] != (3, 3, c) or (b is not None and b.shape != (o,)):
+    if tuple(w.shape[-4:-1]) != (3, 3, c) or (
+            b is not None and b.shape[-1] != o):
         raise ValueError(f"conv3x3 kernel: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, b "
                          f"{None if b is None else tuple(b.shape)}")
-    _check_sizes(n, h, wd, c, o)
-    out = torch.empty((n, h, wd, o), dtype=torch.float32, device=x.device)
+    _check_sizes(n, h, wd, c, o, lanes)
+    out = torch.empty((lanes, n, h, wd, o), dtype=torch.float32,
+                      device=x.device)
     if out.numel():
-        _run(x, None, w, b, out, None, False, act == "elu", tile)
+        _run(x, None, w, b, out, None, (n, h, wd, c, o), False,
+             act == "elu", tile, lanes)
     return out
+
+
+def _launch(x, w, b, act, tile=None):
+    """The forward: act(conv3x3(x, w) + b) in one launch."""
+    if x.ndim != 4 or w.ndim != 4 or (b is not None and b.ndim != 1):
+        raise ValueError(f"conv3x3 kernel: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, b "
+                         f"{None if b is None else tuple(b.shape)}")
+    return _launch_lanes(x, w, b, act, 1, tile)[0]
+
+
+def _launch_dx_lanes(g, out, w, act, lanes=None, tile=None):
+    """The dx mode over lanes, one launch: (dx (L, N, H, W, C), g' (L, N,
+    H, W, O)) from g and the saved output (L, N, H, W, O) or shared (out
+    read for 'elu') and the forward's taps w (L, 3, 3, C, O) or shared."""
+    elu = act == "elu"
+    out = out if elu else None
+    lanes = _lanes_of((("g", g, 4), ("out", out, 4), ("w", w, 4)), lanes)
+    n, h, wd, o = g.shape[-4:]
+    c = w.shape[-2]
+    for name, t in (("g", g), ("w", w)) + ((("out", out),) if elu else ()):
+        _check(name, t, g.device)
+    if tuple(w.shape[-4:]) != (3, 3, c, o) or (
+            elu and tuple(out.shape[-4:]) != (n, h, wd, o)):
+        raise ValueError(f"conv3x3 kernel dx: g {tuple(g.shape)}, w "
+                         f"{tuple(w.shape)}, out "
+                         f"{None if out is None else tuple(out.shape)}")
+    _check_sizes(n, h, wd, o, c, lanes)
+    dx = torch.empty((lanes, n, h, wd, c), dtype=torch.float32,
+                     device=g.device)
+    gp = (torch.empty((lanes, n, h, wd, o), dtype=torch.float32,
+                      device=g.device) if elu else _expand(g, lanes, 4))
+    if dx.numel():
+        _run(g, out, w, None, dx, gp if elu else None, (n, h, wd, o, c),
+             True, elu, tile, lanes)
+    return dx, gp
 
 
 def _launch_dx(g, out, w, act, tile=None):
     """The dx mode: (dx, g') in one launch, from g (N, H, W, O), the saved
     output (read for 'elu') and the forward's taps w (3, 3, C, O)."""
-    n, h, wd, o = g.shape
-    c = w.shape[2]
-    elu = act == "elu"
-    for name, t in (("g", g), ("w", w)) + ((("out", out),) if elu else ()):
-        _check(name, t, g.device)
-    if w.shape != (3, 3, c, o) or (elu and out.shape != g.shape):
+    if g.ndim != 4 or w.ndim != 4 or (act == "elu" and out.ndim != 4):
         raise ValueError(f"conv3x3 kernel dx: g {tuple(g.shape)}, w "
                          f"{tuple(w.shape)}, out "
                          f"{None if out is None else tuple(out.shape)}")
-    _check_sizes(n, h, wd, o, c)
-    dx = torch.empty((n, h, wd, c), dtype=torch.float32, device=g.device)
-    gp = torch.empty_like(g) if elu else g
-    if dx.numel():
-        _run(g, out if elu else None, w, None, dx, gp if elu else None,
-             True, elu, tile)
-    return dx, gp
+    dx, gp = _launch_dx_lanes(g, out, w, act, 1, tile)
+    return dx[0], (gp[0] if act == "elu" else g)
+
+
+def _device_of(t):
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"conv3x3_bias_act: no kernel for {t.device}")
+    return t.device.type
 
 
 def _conv_call(x, w, b, act):
     """Kernel for a CUDA tensor, plain version for a CPU tensor."""
-    if x.is_cuda:
+    if _device_of(x) == "cuda":
         return _launch(x, w, b, act)
-    if x.device.type != "cpu":
-        raise ValueError(f"conv3x3_bias_act: no kernel for {x.device}")
     return conv3x3_bias_act_plain(x, w, b, act)
 
 
 def _dx_call(g, out, w, act):
     """(dx, g'): the kernel's dx mode for a CUDA tensor, the plain version
     for a CPU tensor."""
-    if g.is_cuda:
+    if _device_of(g) == "cuda":
         return _launch_dx(g, out, w, act)
-    if g.device.type != "cpu":
-        raise ValueError(f"conv3x3_bias_act: no kernel for {g.device}")
     return conv3x3_dx_plain(g, out, w, act)
 
 
-class Conv3x3BiasAct(torch.autograd.Function):
-    """conv3x3_bias_act with the JAX custom VJP's backward."""
+def _front(t, dim):
+    """A vmap rule's operand with its lane dim first (contiguous), or as it
+    is (contiguous) when every lane shares it."""
+    if t is None:
+        return None
+    return (t if dim is None else t.movedim(dim, 0)).contiguous()
+
+
+class _Function(torch.autograd.Function):
+    """An autograd.Function whose eager apply passes its arguments as they
+    are. Function.apply binds them to forward's signature with inspect on
+    every call of a Function that has setup_context, which made each conv
+    and dx call ~10-25 us slower on the host (a one-lane step of 27 calls
+    ~14% slower on an H100's host, PERF.md); the forwards here take
+    positional arguments without defaults, so the binding changes nothing.
+    Under torch.func transforms apply is Function.apply."""
+
+    @classmethod
+    def apply(cls, *args):
+        if torch._C._are_functorch_transforms_active():
+            return super().apply(*args)
+        return super(torch.autograd.Function, cls).apply(*args)
+
+
+class Conv3x3BiasAct(_Function):
+    """conv3x3_bias_act with the JAX custom VJP's backward; batched into
+    one lane-mode launch under torch.func.vmap."""
 
     @staticmethod
-    def forward(ctx, x, w, b, act):
-        out = _conv_call(x, w, b, act)
+    def forward(x, w, b, act):
+        return _conv_call(x, w, b, act)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _, act = inputs
         ctx.act = act
-        ctx.save_for_backward(x, w, out)
-        return out
+        ctx.save_for_backward(x, w, output)
 
     @staticmethod
     def backward(ctx, g):
         x, w, out = ctx.saved_tensors
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx, g = _dx_call(g.contiguous(), out, w, ctx.act)
+            dx, g = Conv3x3Dx.apply(g.contiguous(), out, w, ctx.act)
         elif ctx.act == "elu":
             g = elu_grad(g, out)
         if ctx.needs_input_grad[1]:
@@ -257,9 +410,42 @@ class Conv3x3BiasAct(torch.autograd.Function):
             db = g.sum((0, 1, 2))
         return dx, dw, db, None
 
+    @staticmethod
+    def vmap(info, in_dims, x, w, b, act):
+        x, w, b = (_front(t, d) for t, d in zip((x, w, b), in_dims))
+        if _device_of(x) == "cuda":
+            return _launch_lanes(x, w, b, act, info.batch_size), 0
+        return conv3x3_bias_act_lanes_plain(
+            _expand(x, info.batch_size, 4), w, b, act), 0
+
+
+class Conv3x3Dx(_Function):
+    """The backward's dx mode, (dx, g') from (g, the saved output, the
+    forward's taps); a Function of its own so that the conv's backward
+    under torch.func.vmap batches the dx launch too. Never differentiated
+    (the conv's backward is not)."""
+
+    @staticmethod
+    def forward(g, out, w, act):
+        return _dx_call(g, out, w, act)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, g, out, w, act):
+        g, out, w = (_front(t, d) for t, d in zip((g, out, w), in_dims))
+        lanes = info.batch_size
+        if _device_of(g) == "cuda":
+            return _launch_dx_lanes(g, out, w, act, lanes), (0, 0)
+        return conv3x3_dx_lanes_plain(_expand(g, lanes, 4), out, w, act), \
+            (0, 0)
+
 
 def conv3x3_bias_act(x, w, b, act="elu"):
-    """Fused SAME conv3x3 + bias + activation, differentiable.
+    """Fused SAME conv3x3 + bias + activation, differentiable, and batched
+    into one lane-mode launch under torch.func.vmap.
 
     x: (N, H, W, C) float32; w: (3, 3, C, O); b: (O,); act: 'elu' | 'none'.
     Semantics match Keras Conv2D(padding='same') followed by ELU.

@@ -5,6 +5,11 @@ CUDA card; prints its results and writes them as JSON under `--out`.
         every tile of the kernel's table, forward and dx mode, both acts,
         against the float64 plain version (rtol 1e-4 / atol 1e-5) at the
         slice's extreme shapes and the edge shapes, and bit-equal repeats;
+    python -m s2s_ismr_tpu_torch.kernels.conv_bench lanes
+        the lane mode: every tile at the slice's extreme shapes for 4 and
+        20 lanes, forward and dx mode, both acts, against the float64 plain
+        lane version, and every lane bit-equal to a one-lane launch of it
+        with the same tile;
     python -m s2s_ismr_tpu_torch.kernels.conv_bench tiles
         device time of every tile at every slice shape (batch 16), forward
         and dx mode (ELU), beside the tile the wrapper picks;
@@ -126,6 +131,30 @@ def inputs(torch, shape, gen):
     return x, k, b, g
 
 
+def lane_inputs(torch, shape, lanes, gen):
+    """inputs() for `lanes` lanes, stacked on a leading lane dim: each lane
+    its own x, w, b and g."""
+    return tuple(torch.stack(ts) for ts in
+                 zip(*(inputs(torch, shape, gen) for _ in range(lanes))))
+
+
+def grouped_layouts(x, w, b, g, w_adj=None):
+    """cuDNN's operands for the lane mode as one grouped conv (groups = L):
+    x (L, N, H, W, C) -> (N, L*C, H, W) channels-last, w (L, 3, 3, C, O) ->
+    (L*O, C, 3, 3), b -> (L*O,), g (L, N, H, W, O) -> (N, L*O, H, W); and
+    the adjoint taps (L*C, O, 3, 3) for the dx as a grouped conv of g."""
+    L, n, h, wd, c = x.shape
+    o = w.shape[-1]
+
+    def nchw(t):
+        return t.permute(1, 2, 3, 0, 4).reshape(n, h, wd, -1) \
+            .permute(0, 3, 1, 2)
+    w_g = w.permute(0, 4, 3, 1, 2).reshape(L * o, c, 3, 3).contiguous()
+    w_a = w.flip((1, 2)).permute(0, 3, 4, 1, 2).reshape(L * c, o, 3, 3) \
+        .contiguous()
+    return nchw(x), w_g, b.reshape(-1), nchw(g), w_a
+
+
 def excess(got, want):
     """(max abs error, how far the worst element lies past atol + rtol *
     |want|; <= 0 passes)."""
@@ -181,6 +210,52 @@ def run_check(torch, conv, out_dir):
     print(f"check: {len(conv.TILES)} tiles x {len(picks)} shapes, fwd/dx/g' "
           f"x elu/none within rtol {RTOL} / atol {ATOL} of float64, repeats "
           f"bit-equal; max abs err {worst:.3e}")
+    return {"max_abs_err": worst}
+
+
+def run_lanes(torch, conv, out_dir, lane_counts=(4, 20)):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = slice_shapes(torch)
+    picks = [shapes[0], (16, 4, 4, 96, 96), (16, 32, 32, 24, 12),
+             EDGE_SHAPES[1]]
+    worst = 0.0
+    for lanes in lane_counts:
+        for tile in range(len(conv.TILES)):
+            for shape in picks:
+                x, w, b, g = lane_inputs(torch, shape, lanes, gen)
+                for act in ("elu", "none"):
+                    out = conv._launch_lanes(x, w, b, act, tile=tile)
+                    dx, gp = conv._launch_dx_lanes(g, out, w, act, tile=tile)
+                    want = conv.conv3x3_bias_act_lanes_plain(
+                        x.double(), w.double(), b.double(), act)
+                    dx_w, gp_w = conv.conv3x3_dx_lanes_plain(
+                        g.double(), out.double(), w.double(), act)
+                    for name, got, ref in (("fwd", out, want),
+                                           ("dx", dx, dx_w),
+                                           ("gp", gp, gp_w)):
+                        ea, ex = excess(got, ref)
+                        if ex > 0:
+                            raise AssertionError(
+                                f"L={lanes} tile {tile} {name} {act} "
+                                f"{shape}: err {ea:.3e}")
+                        worst = max(worst, ea)
+                    for i in range(lanes):
+                        one = conv._launch(x[i], w[i], b[i], act, tile=tile)
+                        d1, g1 = conv._launch_dx(g[i], out[i], w[i], act,
+                                                 tile=tile)
+                        if not (torch.equal(one, out[i])
+                                and torch.equal(d1, dx[i])
+                                and torch.equal(g1, gp[i])):
+                            raise AssertionError(
+                                f"L={lanes} tile {tile} {act} {shape}: lane "
+                                f"{i} differs from its one-lane launch")
+            print(f"  L={lanes} tile {tile} {conv.TILES[tile]}: "
+                  f"{len(picks)} shapes ok", flush=True)
+    torch.cuda.synchronize()
+    print(f"lanes: L {lane_counts} x {len(conv.TILES)} tiles x {len(picks)} "
+          f"shapes, fwd/dx/g' x elu/none within rtol {RTOL} / atol {ATOL} "
+          f"of float64, every lane bit-equal to its one-lane launch; max abs "
+          f"err {worst:.3e}")
     return {"max_abs_err": worst}
 
 
@@ -377,7 +452,8 @@ def run_step(torch, out_dir, backends, steps=40, device="cuda"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("check", "tiles", "fit", "step"))
+    ap.add_argument("mode", choices=("check", "lanes", "tiles", "fit",
+                                     "step"))
     ap.add_argument("sweep", nargs="?", help="fit: a tiles JSON")
     ap.add_argument("--backend", action="append",
                     help="step: conv backend(s) to profile "
@@ -404,8 +480,8 @@ def main(argv=None):
             if "registers" in line or "spill" in line or "error" in line:
                 print(f"  ptxas: {line.strip()}")
         print(f"  built in {info['seconds']:.1f} s", flush=True)
-        res = (run_check if args.mode == "check" else run_tiles)(
-            torch, conv, args.out)
+        res = {"check": run_check, "lanes": run_lanes,
+               "tiles": run_tiles}[args.mode](torch, conv, args.out)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"conv_bench_{args.mode}.json")
     with open(path, "w") as fh:

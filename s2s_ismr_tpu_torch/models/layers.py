@@ -1,14 +1,22 @@
 """Keras-semantics building blocks as torch modules (port of
 s2s_ismr_tpu/models/layers.py).
 
-  * Conv2D: glorot-uniform kernel, zero bias, channels-last, 'same' pad
-  * Conv2DTranspose: gradient-of-conv (TF/Keras) SAME placement
+  * Conv2D: glorot-uniform kernel, zero bias, channels-last, 'same' pad;
+    optionally computed in bfloat16 (flax `dtype`: input, kernel and bias
+    cast, the result returned as float32)
+  * Conv2DTranspose: gradient-of-conv (TF/Keras) SAME placement; in
+    bfloat16 the transposed conv computes in bf16 and the bias is added in
+    float32
   * BatchNorm: momentum 0.99, epsilon 1e-3, biased batch variance, optional
-    per-sample weights for padded batches
+    per-sample weights for padded batches; its running-statistics update
+    can be collected instead of written (`functional_batchnorm`), which
+    is how lanes batched by torch.func.vmap keep them
   * FusedConv3x3: conv3x3 + bias + ELU (or no activation) through the
     hand-written kernel
   * Dense: glorot-uniform (or he-normal) kernel (in, out), zero bias
-  * Dropout: inverted dropout whose mask comes from an explicit generator
+  * Dropout: inverted dropout whose mask comes from an explicit generator,
+    or is handed in already drawn (batched lanes draw each lane's masks
+    outside vmap)
 
 Activations are NHWC and conv kernels HWIO (kh, kw, C, O), as in JAX, so
 parameters convert from flax by renaming only (models/convert.py). Every
@@ -18,6 +26,7 @@ torch.Generator, never from the global RNG.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -68,19 +77,26 @@ class KernelBias(nn.Module):
 
 
 class Conv2D(nn.Module):
-    """Keras-default 2D conv, stride 1, SAME padding; x NHWC."""
+    """Keras-default 2D conv, stride 1, SAME padding; x NHWC. With `dtype`
+    (torch.bfloat16) it computes as flax's nn.Conv(dtype=...) does: input,
+    kernel and bias cast to it, the conv and the bias add in it, and the
+    result cast back to float32 (JAX Conv2D); parameters stay float32."""
 
     def __init__(self, in_features, features, kernel_size=(3, 3),
-                 generator=None, device=None):
+                 generator=None, device=None, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.conv = KernelBias((*kernel_size, in_features, features),
                                generator, device)
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2),
-                     self.conv.kernel.permute(3, 2, 0, 1), self.conv.bias,
+        k, b = self.conv.kernel.permute(3, 2, 0, 1), self.conv.bias
+        if self.dtype is None:
+            y = F.conv2d(x.permute(0, 3, 1, 2), k, b, padding="same")
+            return y.permute(0, 2, 3, 1)
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(self.dtype), k.to(self.dtype),
                      padding="same")
-        return y.permute(0, 2, 3, 1)
+        return (y.permute(0, 2, 3, 1) + b.to(self.dtype)).to(torch.float32)
 
 
 class Conv2DTranspose(nn.Module):
@@ -93,8 +109,9 @@ class Conv2DTranspose(nn.Module):
     """
 
     def __init__(self, in_features, features, kernel_size=(3, 3),
-                 strides=(2, 2), generator=None, device=None):
+                 strides=(2, 2), generator=None, device=None, dtype=None):
         super().__init__()
+        self.dtype = dtype
         if any(k < s for k, s in zip(kernel_size, strides)):
             raise ValueError(f"kernel {kernel_size} smaller than stride "
                              f"{strides}")
@@ -107,11 +124,12 @@ class Conv2DTranspose(nn.Module):
 
     def forward(self, x):
         n, h, w, _ = x.shape
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
-                               self.kernel.permute(3, 2, 0, 1),
+        dt = self.dtype or x.dtype
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(dt),
+                               self.kernel.permute(3, 2, 0, 1).to(dt),
                                stride=self.strides, padding=self.padding)
         y = y[:, :, :self.strides[0] * h, :self.strides[1] * w]
-        return y.permute(0, 2, 3, 1) + self.bias
+        return y.permute(0, 2, 3, 1).to(torch.float32) + self.bias
 
 
 class BatchNorm(nn.Module):
@@ -122,7 +140,9 @@ class BatchNorm(nn.Module):
     torch's `momentum` convention), eps is 1e-3, the statistics are
     weighted by sample_weight (N,) (0 marks a padded sample), and the
     running averages are left as they are when the weights sum to 0. In
-    train mode the running buffers are updated in place.
+    train mode the running buffers are updated in place, or, inside
+    `functional_batchnorm`, the updated values are recorded for the caller
+    and the buffers are left alone.
     """
 
     momentum = 0.99
@@ -134,6 +154,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
+        self.updates = None     # (dict, name) inside functional_batchnorm
 
     def forward(self, x, train: bool, sample_weight=None):
         if train:
@@ -147,14 +168,40 @@ class BatchNorm(nn.Module):
             var = (w * (x - mean) ** 2).sum(axes) / tot
             with torch.no_grad():
                 m, has_data = self.momentum, w.sum() > 0
-                self.mean.copy_(torch.where(
-                    has_data, m * self.mean + (1 - m) * mean, self.mean))
-                self.var.copy_(torch.where(
-                    has_data, m * self.var + (1 - m) * var, self.var))
+                new_mean = torch.where(
+                    has_data, m * self.mean + (1 - m) * mean, self.mean)
+                new_var = torch.where(
+                    has_data, m * self.var + (1 - m) * var, self.var)
+                if self.updates is None:
+                    self.mean.copy_(new_mean)
+                    self.var.copy_(new_var)
+                else:
+                    updates, name = self.updates
+                    updates[f"{name}.mean"] = new_mean
+                    updates[f"{name}.var"] = new_var
         else:
             mean, var = self.mean, self.var
         inv = torch.rsqrt(var + self.epsilon)
         return (x - mean) * inv * self.scale + self.bias
+
+
+@contextlib.contextmanager
+def functional_batchnorm(model: nn.Module):
+    """Inside the block the BatchNorm layers of `model` leave their running
+    buffers alone: each train-mode forward records the updated statistics
+    in the dict this yields, under the buffers' state_dict names. A
+    forward under torch.func transforms (functional_call with lane-stacked
+    buffers) thus returns them as values instead of writing into them."""
+    updates = {}
+    bns = [(name, m) for name, m in model.named_modules()
+           if isinstance(m, BatchNorm)]
+    for name, m in bns:
+        m.updates = (updates, name)
+    try:
+        yield updates
+    finally:
+        for _, m in bns:
+            m.updates = None
 
 
 class FusedConv3x3(nn.Module):
@@ -204,8 +251,10 @@ class Dropout(nn.Module):
     """Inverted dropout (flax nn.Dropout): in training each element is kept
     with probability 1 - rate and scaled by 1 / (1 - rate), else zeroed.
     The mask is drawn from `generator`, a torch.Generator on x's device
-    (F.dropout and nn.Dropout draw from the global RNG). In eval mode, or
-    at rate 0, x passes through and nothing is drawn."""
+    (F.dropout and nn.Dropout draw from the global RNG), or given as `mask`
+    (bool, True = keep), drawn beforehand by `draw_mask` from the same
+    generator. In eval mode, or at rate 0, x passes through and nothing is
+    drawn."""
 
     def __init__(self, rate):
         super().__init__()
@@ -213,15 +262,23 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
         self.rate = rate
 
-    def forward(self, x, train: bool, generator: torch.Generator | None):
+    def draw_mask(self, shape, generator: torch.Generator, device):
+        """The keep mask of a float32 activation of `shape`, drawn from
+        `generator`."""
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=torch.float32) < 1.0 - self.rate
+
+    def forward(self, x, train: bool, generator: torch.Generator | None,
+                mask=None):
         if not train or self.rate == 0.0:
             return x
-        if generator is None:
-            raise ValueError("Dropout in training needs an explicit "
-                             "torch.Generator on the activations' device")
+        if mask is None:
+            if generator is None:
+                raise ValueError("Dropout in training needs an explicit "
+                                 "torch.Generator on the activations' "
+                                 "device")
+            mask = self.draw_mask(x.shape, generator, x.device)
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=x.dtype) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

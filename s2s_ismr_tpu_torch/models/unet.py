@@ -12,6 +12,12 @@ Topology (reference Keras model, after Horat & Lerch 2023):
 
 Images are NHWC at the interface and inside, so the conv kernel reads them
 as they are. Module and parameter names are the flax ones.
+
+compute_dtype='bfloat16' follows JAX's rules: the 'torch'-backend 3x3
+convs and every transposed conv compute in bf16 and return float32
+(parameters, BatchNorm and the head stay float32); under the 'kernel'
+backend the fused 3x3 convs stay float32, as JAX's Pallas path ignores the
+dtype. 'auto' is float32 (JAX means bf16 only on a TPU).
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ class UNetConfig:
     output: str = "proba"          # 'proba' | 'deterministic'
     dropout_rate: float = 0.0
     conv_backend: str = "auto"     # 'auto' | 'kernel' | 'torch'
-    compute_dtype: str = "auto"    # 'auto' | 'float32'
+    compute_dtype: str = "auto"    # 'auto' | 'float32' | 'bfloat16'
 
     def block_width(self, k):
         """Width of encoder block k (1-based): filters*4 * 2^(k-1)."""
@@ -61,19 +67,17 @@ class UNet(nn.Module):
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         cfg = self.config = config
-        if cfg.compute_dtype not in ("auto", "float32"):
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the port computes in "
-                "float32; bf16 as the compute dtype of the torch-backend "
-                "convs and transposed convs is still to come (ROADMAP queue "
-                "A item 17)")
+        if cfg.compute_dtype not in ("auto", "float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'auto', 'float32' or "
+                             f"'bfloat16', got {cfg.compute_dtype!r}")
+        cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
         use_kernel = cfg.resolved_backend() == "kernel"
         kw = dict(generator=generator, device=device)
         self.dropout = Dropout(cfg.dropout_rate)
 
         def conv_elu(name, c_in, c_out):
             mod = (FusedConv3x3(c_in, c_out, **kw) if use_kernel
-                   else _ConvELU(c_in, c_out, **kw))
+                   else _ConvELU(c_in, c_out, dtype=cdt, **kw))
             self.add_module(name, mod)
 
         def bn(name, c):
@@ -95,7 +99,7 @@ class UNet(nn.Module):
         for k in range(cfg.n_blocks, 0, -1):
             w = cfg.block_width(k)
             self.add_module(f"up{k}_convT", Conv2DTranspose(
-                c, w, cfg.ct_kernel, cfg.ct_stride, **kw))
+                c, w, cfg.ct_kernel, cfg.ct_stride, dtype=cdt, **kw))
             conv_elu(f"up{k}_conv1", 2 * w, w)
             conv_elu(f"up{k}_conv2", w, w)
             if k > 1:
@@ -104,17 +108,33 @@ class UNet(nn.Module):
         n_out = cfg.n_bins if cfg.output == "proba" else 1
         self.head = Conv2D(c, n_out, (1, 1), **kw)
 
+    def dropout_shapes(self, n, height, width):
+        """Shapes of the activations the dropout layers see in one forward
+        of n rows, in the order it draws their masks."""
+        cfg = self.config
+        enc = [(n, height >> (k - 1), width >> (k - 1), cfg.block_width(k))
+               for k in range(1, cfg.n_blocks + 1)]
+        return enc + enc[::-1]
+
     def forward(self, x, train: bool = False, sample_weight=None,
                 dropout_generator: torch.Generator | None = None,
-                bottleneck_delta=None, intermediates: dict | None = None):
+                bottleneck_delta=None, intermediates: dict | None = None,
+                dropout_masks=None):
         """x (N, H, W, C) -> (N, H, W, n_bins) probabilities (or (N, H, W,
         1) for the deterministic head). In training, dropout (after conv1
         of every encoder and decoder block) draws its masks from
-        `dropout_generator`, a generator on x's device. bottleneck_delta is
-        the GradCAM tap added to the bottleneck activations;
-        `intermediates`, when given, receives them under 'bottleneck'."""
+        `dropout_generator`, a generator on x's device, or takes them in
+        order from `dropout_masks` (keep masks of `dropout_shapes`).
+        bottleneck_delta is the GradCAM tap added to the bottleneck
+        activations; `intermediates`, when given, receives them under
+        'bottleneck'."""
         cfg = self.config
         pool = avg_pool2 if cfg.apool else max_pool2
+        masks = iter(dropout_masks if dropout_masks is not None else ())
+
+        def drop(v):
+            return self.dropout(v, train, dropout_generator,
+                                next(masks, None))
 
         def bn(v, name):
             if not cfg.bn:
@@ -126,7 +146,7 @@ class UNet(nn.Module):
         h = x
         for k in range(1, cfg.n_blocks + 1):
             c = getattr(self, f"down{k}_conv1")(h)
-            c = self.dropout(c, train, dropout_generator)
+            c = drop(c)
             c = getattr(self, f"down{k}_conv2")(c)
             c = bn(c, f"down{k}_bn")
             skips.append(c)
@@ -144,7 +164,7 @@ class UNet(nn.Module):
             u = getattr(self, f"up{k}_convT")(h)
             u = torch.cat([skips[k - 1], u], dim=-1)
             u = getattr(self, f"up{k}_conv1")(u)
-            u = self.dropout(u, train, dropout_generator)
+            u = drop(u)
             u = getattr(self, f"up{k}_conv2")(u)
             h = bn(u, f"up{k}_bn") if k > 1 else u
 

@@ -14,7 +14,7 @@ a closed-form 3x3 adjugate, so an IRLS iteration is a few elementwise ops
 and row reductions on (F, 2T, P) tensors. The JAX `lax.scan` is a Python
 loop whose tensors stay on the device; nothing in it reads back to the
 host. The JAX package computes this in XLA, not Pallas, so it ports as
-torch ops.
+torch ops. With a mesh, the pixel rows are cut over its devices.
 """
 
 from __future__ import annotations
@@ -99,15 +99,23 @@ def _irls_pixels(x, y, w, q, iters=N_IRLS_ITERS):
     return b0, b1, b2
 
 
-def elr_folds(x_mean, targets_folds, train_masks, test_masks, y_raw):
+def elr_folds(x_mean, targets_folds, train_masks, test_masks, y_raw,
+              mesh=None):
     """All pixels of all folds in one batched computation.
 
     x_mean: (T, *S) ensemble-mean predictor, shared by the folds;
     targets_folds: (F, 2, T, *S) cumulative targets; train_masks,
     test_masks: (F, T) bool; y_raw: (T, *S) observations.
     Returns (F, T, *S, 3) tercile probabilities, NaN at skipped pixels.
-    Everything runs on x_mean's device.
+    Everything runs on x_mean's device, or with `mesh` (parallel.mesh),
+    as JAX's P(None, 'lanes') shardings: the Y rows (axis 1 of x_mean)
+    are cut into one contiguous block per device, each device fits its
+    pixels (every pixel's GLM is independent: no communication), and the
+    blocks come back concatenated on x_mean's device.
     """
+    if mesh is not None:
+        return _elr_folds_mesh(x_mean, targets_folds, train_masks,
+                               test_masks, y_raw, mesh)
     x_mean = torch.as_tensor(x_mean, dtype=torch.float32)
     dev = x_mean.device
     tg = torch.as_tensor(targets_folds, dtype=torch.float32, device=dev)
@@ -169,6 +177,28 @@ def elr_folds(x_mean, targets_folds, train_masks, test_masks, y_raw):
     probs = torch.where(valid[..., None], probs, 1.0 / 3.0)  # 1/3 fill
     probs = torch.where(skip[:, None, :, None], float("nan"), probs)
     return probs.reshape((F, T) + shape_s + (3,))
+
+
+def _elr_folds_mesh(x_mean, targets_folds, train_masks, test_masks, y_raw,
+                    mesh):
+    """elr_folds with the Y rows cut over the mesh's devices."""
+    from ..parallel.mesh import on_devices
+    x_mean = torch.as_tensor(x_mean, dtype=torch.float32)
+    tg = torch.as_tensor(targets_folds, dtype=torch.float32)
+    yr = torch.as_tensor(y_raw, dtype=torch.float32)
+    rows = torch.arange(x_mean.shape[1]).tensor_split(mesh.size)
+
+    def part(i, dev):
+        ys = rows[i]
+        if not len(ys):
+            return None
+        ys = slice(int(ys[0]), int(ys[-1]) + 1)
+        return elr_folds(x_mean[:, ys].to(dev), tg[:, :, :, ys].to(dev),
+                         torch.as_tensor(train_masks).to(dev),
+                         torch.as_tensor(test_masks).to(dev),
+                         yr[:, ys].to(dev)).to(x_mean.device)
+    parts = [p for p in on_devices(part, mesh) if p is not None]
+    return torch.cat(parts, dim=2)
 
 
 def elr_fold(x_mean, targets, train_mask, test_mask, y_raw):

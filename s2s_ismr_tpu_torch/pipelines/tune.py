@@ -13,7 +13,9 @@ and writes the outputs tree of the JAX CLI. The NN branch runs the U-Net
 sweep (`training_type='tune'`), the fixed training of one configuration
 (cnn/mlp, and `'train'` for any architecture) or the replay of saved
 winners (`'load'`), with the proba or deterministic head and the mean,
-multi_predictor or stacked predictor.
+multi_predictor or stacked predictor. With more than one card in the
+process (or `use_mesh=True`), the sweep's lanes and the ELR's pixel rows
+are sharded over a mesh of the cards (`parallel.mesh`), as in JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..ops import metrics, terciles
 from ..profiling import StageTimer, trace
 from ..train import checkpoint, splits
 from ..models import UNetConfig
+from ..parallel import mesh as pmesh
 from ..train.engine import predict
 from ..train.sweep import (SweepResult, TuningGrid, enumerate_trials,
                            run_fixed_training, run_unet_sweep)
@@ -138,11 +141,12 @@ def _elr_fit_folds(y, weeks, train_masks, wm):
 
 
 def run_elr_branch(cfg: PipelineConfig, bundles, log=print,
-                   device=None) -> ElrResult:
+                   device=None, mesh=None) -> ElrResult:
     """The ELR baseline of a tune run on `device` (None: the card):
     year-bootstrap splits, per-fold labels, the pixel-parallel GLM of
     every model (blended for MME), and RPSS maps (train / test) per
-    fold."""
+    fold. With `mesh` the GLM's pixel rows are sharded over its
+    devices."""
     device = devices.resolve(device)
     names = list(bundles)
     first = bundles[names[0]]
@@ -157,7 +161,8 @@ def run_elr_branch(cfg: PipelineConfig, bundles, log=print,
     per_model_probs = []
     for n in names:
         xm = torch.as_tensor(bundles[n].ensemble_mean(), device=device)
-        probs = elr_ops.elr_folds(xm, targets, fm.train, fm.test, y_dev)
+        probs = elr_ops.elr_folds(xm, targets, fm.train, fm.test, y_dev,
+                                  mesh=mesh)
         per_model_probs.append(probs)
         log(f"[elr] model {n}: fitted {tuple(probs.shape)}")
     probs = (elr_ops.blend_probabilities(per_model_probs) if cfg.is_mme
@@ -299,12 +304,13 @@ def _nn_result(cfg, filled, names, first, fm, labels, per_model_preds,
 
 
 def run_nn_branch(cfg: PipelineConfig, bundles, log=print, timer=None,
-                  training_type="tune", device=None) -> NNResult:
+                  training_type="tune", device=None, mesh=None) -> NNResult:
     """The NN branch of a tune run on `device` (None: the card): splits,
     labels, then for every model (blended for MME) the U-Net sweep
-    (training_type 'tune') or the fixed training of one configuration
-    (cnn/mlp, or 'train'), and RPSS maps (train / val / test) per fold.
-    `timer` (a StageTimer) counts the optimizer steps."""
+    (training_type 'tune'; its lanes sharded over `mesh` when given) or
+    the fixed training of one configuration (cnn/mlp, or 'train'), and
+    RPSS maps (train / val / test) per fold. `timer` (a StageTimer) counts
+    the optimizer steps."""
     device = devices.resolve(device)
     names, filled, first, fm, labels, y_oh, edges_pr = \
         _nn_setup(cfg, bundles, log, device)
@@ -349,7 +355,7 @@ def run_nn_branch(cfg: PipelineConfig, bundles, log=print, timer=None,
         if cfg.architecture == "unet" and training_type == "tune":
             res = run_unet_sweep(x, y_tgt, fm.train, fm.val, grid_n,
                                  epochs=cfg.epochs, output=cfg.output,
-                                 device=device)
+                                 device=device, mesh=mesh)
             if det:
                 res = replace(res, predictions=_deterministic_to_probs(
                     res.predictions, filled[n].weeks, edges_pr))
@@ -521,7 +527,8 @@ class TuneOutputs:
 def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
                  make_plots=False, seed=0,
                  synthetic_step=None, log=print, profile_dir=None,
-                 training_type="tune", device=None) -> TuneOutputs:
+                 training_type="tune", device=None,
+                 use_mesh="auto") -> TuneOutputs:
     """A whole tune run on `device` (None: the card): data, ELR branch, NN
     branch (training_type 'tune' | 'train' | 'load'), skill mask, and
     under `out_root` the JAX CLI's outputs tree:
@@ -535,11 +542,25 @@ def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
     NN-vs-ELR reliability diagrams under figures/ (needs matplotlib).
     profile_dir traces the ELR stage into profile_dir and the NN stage
     into profile_dir/nn (torch.profiler Chrome traces; a 'load' traces
-    only the ELR stage)."""
+    only the ELR stage).
+
+    use_mesh: 'auto' shards the sweep's lanes and the ELR's pixel rows
+    over every card when the process sees more than one (JAX: more than
+    one device); True always does (a one-card mesh, or `device` alone when
+    it is not a card); False never."""
     if training_type not in ("tune", "train", "load"):
         raise ValueError(f"training_type must be 'tune', 'train' or "
                          f"'load', got {training_type!r}")
     device = devices.resolve(device)
+    mesh = None
+    if use_mesh and (use_mesh != "auto"
+                     or (torch.device(device).type == "cuda"
+                         and torch.cuda.device_count() > 1)):
+        mesh = pmesh.sweep_mesh(
+            devices=None if torch.device(device).type == "cuda"
+            else [device])
+    if mesh is not None:
+        log(f"[mesh] sweep lanes sharded over {mesh.size} devices")
     timer = StageTimer()
     t_start = time.time()
     log(f"####### TUNING {'+'.join(cfg.models)} for {cfg.obs} "
@@ -566,7 +587,8 @@ def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
     # each branch ends by copying its RPSS maps to the host, so the stage
     # timers include the device work
     with trace(profile_dir, log, device), timer.stage("elr"):
-        elr_res = run_elr_branch(cfg, bundles, log, device=device)
+        elr_res = run_elr_branch(cfg, bundles, log, device=device,
+                                 mesh=mesh)
     # on disk before the long NN stage, which may fail
     for tag, fld in [("train", elr_res.rpss_train),
                      ("test", elr_res.rpss_test)]:
@@ -584,7 +606,7 @@ def run_pipeline(cfg: PipelineConfig, source="synthetic", out_root=".",
                    device), timer.stage("nn"):
             nn_res = run_nn_branch(cfg, bundles, log, timer=timer,
                                    training_type=training_type,
-                                   device=device)
+                                   device=device, mesh=mesh)
     arch = cfg.architecture
 
     # per-fold winner models (the reference deletes its checkpoints,

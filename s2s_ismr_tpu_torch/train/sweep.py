@@ -5,10 +5,19 @@ learning_rates, ct_kernels, n_filters, n_blocks); each trial builds a fresh
 U-Net, fits it with checkpoint / early stop, and the trial with the lowest
 best-epoch val_loss wins the fold, the *first* one in product order on ties.
 
-Lanes (fold x trial) run one after another on one device (the JAX
-package's serial lane dispatch). Eager torch has no compile to hide, so the
-JAX program memo, compile-ahead and thread pools have no counterpart;
-batched lanes and multi-GPU lanes are later work (ROADMAP).
+Lanes (fold x trial) run as the JAX sweep's `lane_dispatch` says:
+  * 'serial' (and 'auto' without a mesh, JAX's default): one lane after
+    another on one device, each through `train_fold`, each stopping at its
+    own early-stop epoch;
+  * 'vmap': each bucket's F folds x R learning rates as L = F*R batched
+    lanes through `engine.train_lanes` (one vmapped step for all lanes, the
+    conv kernel's lane mode), running to the last lane's stop;
+  * a mesh (`parallel.mesh`): the bucket's lanes, flattened lane-major and
+    padded to a device multiple with copies of lane 0, cut into one block
+    per device, each device running its block in a thread of its own, lane
+    after lane ('auto') or batched ('vmap').
+Eager torch has no compile to hide, so the JAX program memo, compile-ahead
+and compile thread pools have no counterpart.
 
 `run_fixed_training` is the fixed single-configuration training of the
 cnn/mlp models and of training_type='train': one lane per fold.
@@ -27,7 +36,9 @@ from torch import nn
 
 from .. import device as devices
 from ..models import UNet, UNetConfig
-from .engine import TrainSettings, predict, train_batches, train_fold
+from ..parallel import mesh as pmesh
+from .engine import (TrainSettings, predict, train_batches, train_fold,
+                     train_lanes)
 
 # model_factory(generator) -> a fresh module on the run's device, its
 # parameters drawn from the generator
@@ -147,60 +158,171 @@ def _overrides(lane_overrides, f, trial_idx):
     return {"init_variables": init, "epoch_perms": perms}
 
 
+_DISPATCH = ("auto", "serial", "vmap")
+
+
+def _lane_models(lanes, config, in_channels, base_seed, device):
+    """Per lane (f, trial) of `lanes`: its U-Net on `device` drawn from its
+    lane generator, the generator (batch orders next) and its dropout
+    generator on `device`."""
+    gens = [lane_generator(base_seed, f, t.index) for f, t in lanes]
+    models = [UNet(config(t), in_channels, generator=g, device=device)
+              for (f, t), g in zip(lanes, gens)]
+    drops = [lane_generator(base_seed, f, t.index, device, stream=1)
+             for f, t in lanes]
+    return models, gens, drops
+
+
+def _train_serial(lanes, ctx, device):
+    """Lanes one after another through train_fold on `device`: [(best
+    state, best val loss, epochs run)]."""
+    x, y, tm, vm, config, settings, base_seed, overrides = ctx
+    models, gens, drops = _lane_models(lanes, config, x.shape[-1],
+                                       base_seed, device)
+    out = []
+    for (f, t), model, gen, drop in zip(lanes, models, gens, drops):
+        best, vloss, hist = train_fold(
+            model, x, y[f], tm[f], vm[f], t.lr, gen, settings,
+            dropout_generator=drop, **_overrides(overrides, f, t.index))
+        out.append((best, vloss, int(torch.isfinite(hist).sum())))
+    return out, 0, 0
+
+
+def _train_batched(lanes, ctx, device):
+    """The lanes batched through train_lanes on `device`: [(best state,
+    best val loss, epochs run)], batched steps, batched epochs."""
+    x, y, tm, vm, config, settings, base_seed, overrides = ctx
+    models, gens, drops = _lane_models(lanes, config, x.shape[-1],
+                                       base_seed, device)
+    fs = [f for f, _ in lanes]
+    ov = [_overrides(overrides, f, t.index) for f, t in lanes]
+    res = train_lanes(
+        models, x, y[fs], tm[fs], vm[fs], [t.lr for _, t in lanes], gens,
+        settings, init_variables=[o.get("init_variables") for o in ov],
+        epoch_perms=[o.get("epoch_perms") for o in ov],
+        dropout_generators=drops)
+    n_ep = torch.isfinite(res.hist).sum(1).tolist()
+    return (list(zip(res.best, res.best_vloss, n_ep)), res.batched_steps,
+            res.batched_epochs)
+
+
+def _mesh_lanes(lanes, ctx, mesh, local, device):
+    """The bucket's lanes sharded over the mesh: flattened lane-major,
+    padded to a device multiple with copies of lane 0, one contiguous
+    block per device, run there lane after lane through train_fold (local
+    'scan') or batched through train_lanes ('vmap'); results gathered on
+    `device`, the pad lanes dropped."""
+    pad = (-len(lanes)) % mesh.size
+    ids = torch.tensor(list(range(len(lanes))) + [0] * pad)
+
+    def run(xd, yd, tmd, vmd, idx):
+        # one lane ('scan': idx 0-d) or the device's block ('vmap')
+        train = _train_batched if local == "vmap" else _train_serial
+        out, _, _ = train([lanes[i] for i in idx.reshape(-1).tolist()],
+                          (xd, yd, tmd, vmd) + ctx[4:], xd.device)
+        best, vloss, n_ep = zip(*out)
+        n_ep = torch.tensor(n_ep, device=xd.device)
+        if local == "scan":
+            return best[0], vloss[0], n_ep[0]
+        return ({k: torch.stack([b[k] for b in best]) for k in best[0]},
+                torch.stack(vloss), n_ep)
+
+    fn = pmesh.shard_map_lanes(run, mesh, n_shared=4, local=local)
+    return _unflatten_lanes(fn(*ctx[:4], ids), len(lanes), device)
+
+
+def _unflatten_lanes(out, n, device):
+    """Gathered lane-major mesh outputs (best states, val losses, epochs
+    run) back to per-lane tuples on `device`, the pad lanes dropped."""
+    best, vloss, n_ep = out
+    return [({k: v[i].to(device) for k, v in best.items()},
+             vloss[i].to(device), int(n_ep[i])) for i in range(n)]
+
+
 def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
                    grid: TuningGrid, epochs: int = 100, base_seed: int = 42,
                    output: str = "proba", device=None,
-                   lane_overrides=None) -> SweepResult:
-    """Run the full tuning sweep, lane after lane, each with early exit.
+                   lane_overrides=None, lane_dispatch: str = "auto",
+                   mesh=None, conv_backend: str = "auto",
+                   compute_dtype: str = "auto") -> SweepResult:
+    """Run the full tuning sweep; every lane stops early on patience.
 
     x:           (T, H, W, C) predictor images
     y_oh_folds:  (F, T, H, W, 3) per-fold one-hot labels, or for
                  output='deterministic' (F, T, H, W, 1) raw targets (NaN
                  where the loss ignores them)
     train_masks: (F, T) bool; val_masks: (F, T) bool
-    device:      where the lanes train (None: the card)
+    device:      where the lanes train (None: the card), and, with a mesh,
+                 where the results and the winner forwards go
+    lane_dispatch: 'serial' (lane after lane), 'vmap' (each bucket's
+                 folds x learning rates batched through train_lanes) or
+                 'auto': serial without a mesh, as in JAX. 'serial' with a
+                 mesh is refused: a mesh runs each device's lanes in turn
+                 ('auto') or batched ('vmap')
+    mesh:        optional parallel.mesh.Mesh sharding each bucket's lanes
+                 over its devices (sweep_mesh())
     lane_overrides: optional (fold, trial index) -> (init state_dict,
                  (epochs, T) batch orders) used instead of the lane
                  generator's (a test seam: feeds JAX's init and batch
                  orders)
+    conv_backend, compute_dtype: the UNetConfig fields of every trial
+    timings reports execute_s, collect_s and lane_dispatch ('serial',
+    'vmap' or 'mesh'); a 'vmap' sweep also the batched loop's
+    batched_steps and batched_epochs, summed over buckets.
+    train_steps counts every lane's own steps (its epochs run times its
+    batches holding a training sample) in every mode.
     """
+    if lane_dispatch not in _DISPATCH:
+        raise ValueError(f"lane_dispatch={lane_dispatch!r}: one of "
+                         f"{_DISPATCH}")
+    if lane_dispatch == "serial" and mesh is not None:
+        raise ValueError("lane_dispatch='serial' is a single-device "
+                         "execution model; mesh sweeps shard the lane axis "
+                         "and run each device's lanes in turn")
+    mode = ("mesh" if mesh is not None else
+            "vmap" if lane_dispatch == "vmap" else "serial")
     device = devices.resolve(device)
     x = torch.as_tensor(x, dtype=torch.float32).to(device)
     y_oh_folds = torch.as_tensor(y_oh_folds, dtype=torch.float32).to(device)
     train_masks = np.asarray(train_masks, bool)
     val_masks = np.asarray(val_masks, bool)
     F, T = train_masks.shape
+    tm = torch.as_tensor(train_masks, device=device)
+    vm = torch.as_tensor(val_masks, device=device)
 
     trials = enumerate_trials(grid)
     val_table = np.full((F, len(trials)), np.inf, np.float32)
     lane_state: Dict[Tuple[int, int], Any] = {}
     lane_vloss: Dict[Tuple[int, int], torch.Tensor] = {}
-    total_steps = total_epochs = 0
+    total_steps = total_epochs = batched_steps = batched_epochs = 0
 
     def config(t: Trial):
         return UNetConfig(filters=t.filters, n_blocks=t.n_blocks,
-                          ct_kernel=t.ct_kernel, output=output)
+                          ct_kernel=t.ct_kernel, output=output,
+                          conv_backend=conv_backend,
+                          compute_dtype=compute_dtype)
 
     t0 = time.perf_counter()
     for key_, bucket in bucket_trials(trials).items():
         settings = _settings(epochs, key_[0], grid.patience, val_masks,
                              True, output)
-        for f in range(F):
-            n_real = train_batches(int(train_masks[f].sum()), key_[0])
-            for t in bucket:
-                gen = lane_generator(base_seed, f, t.index)
-                model = UNet(config(t), x.shape[-1], generator=gen,
-                             device=device)
-                best, vloss, hist = train_fold(
-                    model, x, y_oh_folds[f], train_masks[f], val_masks[f],
-                    t.lr, gen, settings, dropout_generator=lane_generator(
-                        base_seed, f, t.index, device, stream=1),
-                    **_overrides(lane_overrides, f, t.index))
-                n_ep = int(torch.isfinite(hist).sum())
-                total_epochs += n_ep
-                total_steps += n_ep * n_real
-                lane_state[f, t.index] = best
-                lane_vloss[f, t.index] = vloss
+        lanes = [(f, t) for f in range(F) for t in bucket]
+        ctx = (x, y_oh_folds, tm, vm, config, settings, base_seed,
+               lane_overrides)
+        if mode == "mesh":
+            results = _mesh_lanes(lanes, ctx, mesh, "vmap" if
+                                  lane_dispatch == "vmap" else "scan", device)
+        else:
+            train = _train_batched if mode == "vmap" else _train_serial
+            results, steps, n_epochs = train(lanes, ctx, device)
+            batched_steps += steps
+            batched_epochs += n_epochs
+        for (f, t), (best, vloss, n_ep) in zip(lanes, results):
+            total_epochs += n_ep
+            total_steps += n_ep * train_batches(int(train_masks[f].sum()),
+                                                key_[0])
+            lane_state[f, t.index] = best
+            lane_vloss[f, t.index] = vloss
     t_execute = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -219,6 +341,12 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
         winner_vars.append(state)
         model = build_winner(winner_cfgs[f], state, x.shape[-1], device)
         preds.append(predict(model, None, x))
+    timings = {"execute_s": t_execute,
+               "collect_s": time.perf_counter() - t0,
+               "lane_dispatch": mode}
+    if mode == "vmap":
+        timings.update(batched_steps=batched_steps,
+                       batched_epochs=batched_epochs)
     return SweepResult(
         best_val_loss=val_table[np.arange(F), best_idx],
         best_trial=best_trials,
@@ -228,8 +356,7 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
         winner_configs=winner_cfgs,
         train_steps=total_steps,
         epochs_run=total_epochs,
-        timings={"execute_s": t_execute,
-                 "collect_s": time.perf_counter() - t0})
+        timings=timings)
 
 
 @dataclass
