@@ -88,24 +88,48 @@ line is printed:
      and of cuDNN's grouped conv (groups = L) in turns, beside L times
      the one-lane bound; (c) run_unet_sweep of the fast tune_ECMWF_com
      with learning rates (1e-3, 1e-4) (4 lanes per bucket),
-     lane_dispatch 'vmap', 'serial', 'vmap': launches exact (27 lane-mode
+     lane_dispatch 'vmap' then 'serial': launches exact (27 lane-mode
      launches per batched step, 14 per batched val epoch, 14 one-lane per
-     winner), val tables within 2e-4 and the same winners, the vmap
-     repeat's difference, steps/s of each, and each mode's device idle
-     share over one profiled epoch; (d) run_pipeline(use_mesh=True) on a
+     winner), val tables within 2e-4 and the same winners, steps/s of
+     each, and each mode's device idle share over one profiled epoch; (d) run_pipeline(use_mesh=True) on a
      one-card mesh bit-equal to use_mesh=False (RPSS netcdfs, winner
      states; --epochs 2, cuDNN deterministic in both); (e) one-epoch sweeps with
      compute_dtype 'bfloat16' under the kernel and torch backends: finite
      val losses within 2e-2 of float32;
+  11. the eight configs' tuning grids at full width on cuda, TF32 off:
+     (a) the conv kernel at every kernel-conv shape of every trial of the
+     eight configs at its batch size on the config's grid (n_blocks 3-5,
+     filters 2-3, 24/32/64 grids, batch 16 and 32: 134 shapes, C and O up
+     to 384, maps down to 1x1 and the 24x24 grid's 3x3) as phase 3 checks
+     its shapes, every launch twice and bit-equal, the C = O = 384 and 3x3
+     shapes named; the eval shapes (val rows and T in row chunks) forward
+     only; the device times of the 134 shapes in turns with cuDNN, summed
+     per grid family, and every shape where cuDNN wins; (b) `run.main(
+     ["suite", "--synthetic", "--folds", "2", "--epochs", "1", "--out",
+     <dir>, "--check", <s2s_ismr_tpu_torch/expected/
+     suite_rpss_h100_cut.json>])` in-process with cuDNN deterministic: all
+     eight configs with every trial of their grids; exit code 0, every
+     config ok and `[check] ok`, the outputs tree file by file, ELR and
+     U-Net test RPSS finite on land in every fold, each config's launches
+     equal to the per-trial count, its wall, NN lane steps/s and peak
+     device memory;
 then checks that neither jax nor any module of the JAX package
 (s2s_ismr_tpu) was loaded; prints the kernels JSON line (launches summed
-over phases 4, 5, 6, 8, 9 and 10; times and bounds summed over the shapes
-of phase 3, the forward under ms / plain_ms / library_ms / bound_ms /
-bound_3xtf32_ms, the dx mode under dx_*; phase 10's lane mode at L = 4
-under lanes_* (lanes_serial_ms: L one-lane launches, lanes_library_ms:
-cuDNN grouped), at L = 20 under lanes20_*, lanes_launches: the lane-mode
-launches of (c)'s first vmap sweep, and both modes' idle shares), the
-card line, then the result line {"ok": true, ...}.
+over phases 4, 5, 6, 8, 9, 10 and 11; times and bounds summed over the
+shapes of phase 3, the forward under ms / plain_ms / library_ms /
+bound_ms / bound_3xtf32_ms, the dx mode under dx_*; phase 10's lane mode
+at L = 4 under lanes_* (lanes_serial_ms: L one-lane launches,
+lanes_library_ms: cuDNN grouped), at L = 20 under lanes20_*,
+lanes_launches: the lane-mode launches of (c)'s vmap sweep, and
+both modes' idle shares; phase 11's sums over its training shapes under
+grids_*, its shape counts and suite_launches), the card line, then the
+result line {"ok": true, ...}.
+
+    python3 chip_smoke.py --write-expected PATH
+
+runs phases 1-2, then phase 11's suite twice (without --check), and
+writes the port's expectations file to PATH: the first run's means, the
+tolerance the larger of 1e-5 and ten times the two runs' largest drift.
 """
 
 from __future__ import annotations
@@ -169,9 +193,9 @@ def run_both(fn, x, k, b, g, act, dtype):
 def kernel_vs_plain(torch, conv, shapes, backward=True,
                     acts=("elu", "none")):
     """The kernel's forward (and, through the autograd backward, dx, dw,
-    db) against the plain version at each shape; with `backward`, also the
-    dx mode itself (dx and g') and bit-equal repeats of every launch.
-    Returns the largest abs error.
+    db) against the plain version at each shape, and a repeat of every
+    launch bit-equal to the first; with `backward`, also the dx mode itself
+    (dx and g'). Returns the largest abs error.
 
     The yardstick is the plain version in float64 on the same inputs: the
     plain float32 version goes through cuDNN, whose weight-gradient
@@ -193,6 +217,9 @@ def kernel_vs_plain(torch, conv, shapes, backward=True,
                                 x.double(), k.double(), b.double(), act),),
                             (conv.conv3x3_bias_act(x, k, b, act),),
                             (conv.conv3x3_bias_act_plain(x, k, b, act),)]
+                    check(torch.equal(runs[1][0],
+                                      conv.conv3x3_bias_act(x, k, b, act)),
+                          f"{shape} {act}: a repeat of the forward differs")
             ref, got, plain = runs
             tag = f"{shape} {act}"
             parts = []
@@ -225,14 +252,19 @@ def kernel_times(torch, conv, shapes, act="elu"):
     turns (kernel, cuDNN, kernel, cuDNN), and of the plain version once:
     the forward (bias + act) and the dx mode (for ELU: dx and g'). cuDNN's
     dx is one F.conv2d of g with the adjoint taps made beforehand, so for
-    ELU it does less than the kernel (no ELU', no g'). Returns the sums
-    over the shapes, in ms, with the bound summed the same way."""
+    ELU it does less than the kernel (no ELU', no g'). A shape's ten
+    timings come from one profiler window (bench.device_ms_many; at phase
+    3's 22 U-Net shapes its sums were within 5% of one window per timing,
+    PERF.md §6). Returns the sums
+    over the shapes, in ms, with the bound summed the same way, and the
+    same numbers per shape: {shape: {mode: {key: ms}}}."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
     keys = ("ms", "library_ms", "plain_ms", "bound_ms", "ops_ms",
             "bytes_ms", "bound_3xtf32_ms")
     tf32x3 = bench.PEAK_TF32_FLOPS / 3
     sums = {m: dict.fromkeys(keys, 0.0) for m in ("fwd", "dx")}
+    per_shape = {}
     for shape in shapes:
         x, k, b, g = bench.inputs(torch, shape, gen)
         elu = act == "elu"
@@ -249,21 +281,23 @@ def kernel_times(torch, conv, shapes, act="elu"):
                 "dx": (lambda: conv._dx_call(g, out, k, act),
                        lambda: F.conv2d(g_nchw, k_adj, None, padding=1),
                        lambda: conv.conv3x3_dx_plain(g, out, k, act))}
-            parts = []
-            for mode, (kern, lib, plain) in calls.items():
-                t = [bench.device_ms(torch, f)
+            order = [f for kern, lib, plain in calls.values()
                      for f in (kern, lib, kern, lib, plain)]
-                check(None not in t, f"{shape} {mode}: the profiler saw no "
-                      f"device time")
+            ts = bench.device_ms_many(torch, order)
+            check(ts is not None, f"{shape}: the profiler saw no device time")
+            parts = []
+            for i, mode in enumerate(calls):
+                t = ts[5 * i:5 * i + 5]
                 ms, lib_ms = (t[0] + t[2]) / 2, (t[1] + t[3]) / 2
                 t_ops, t_bytes = bench.bound_parts(shape, mode == "dx", elu)
                 bnd, by = bench.bound(shape, mode == "dx", elu)
                 bnd3, by3 = bench.bound(shape, mode == "dx", elu,
                                         flops=tf32x3)
-                s = sums[mode]
-                for key, v in zip(keys, (ms, lib_ms, t[4], bnd, t_ops,
-                                         t_bytes, bnd3)):
-                    s[key] += v
+                row = dict(zip(keys, (ms, lib_ms, t[4], bnd, t_ops, t_bytes,
+                                      bnd3)))
+                per_shape.setdefault(shape, {})[mode] = row
+                for key, v in row.items():
+                    sums[mode][key] += v
                 parts.append(
                     f"{mode}: kernel {t[0] * 1e3:.2f}/{t[2] * 1e3:.2f} us, "
                     f"cuDNN {t[1] * 1e3:.2f}/{t[3] * 1e3:.2f} us, plain "
@@ -271,7 +305,20 @@ def kernel_times(torch, conv, shapes, act="elu"):
                     f"({by}), {bnd / ms:.1%} of bound; at 3xTF32 "
                     f"{bnd3 * 1e3:.3f} us ({by3}), {bnd3 / ms:.1%}")
         print(f"  {str(shape):<22} {act:<4} " + "   ".join(parts))
-    return sums
+    return sums, per_shape
+
+
+def print_sums(name, n, sums):
+    """One line per mode of kernel_times' sums over n shapes."""
+    for mode, s in sums.items():
+        print(f"  {name} {mode} summed over {n} shapes: "
+              f"kernel {s['ms']:.4f} ms, cuDNN "
+              f"{s['library_ms']:.4f} ms, plain "
+              f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
+              f"({s['bound_ms'] / s['ms']:.1%} of it; FLOP "
+              f"{s['ops_ms']:.4f} ms, bytes {s['bytes_ms']:.4f} ms); "
+              f"bound at 3xTF32 {s['bound_3xtf32_ms']:.4f} ms "
+              f"({s['bound_3xtf32_ms'] / s['ms']:.1%} of it)")
 
 
 def main_path(torch, conv, card):
@@ -370,31 +417,39 @@ def cli_run(torch, conv, argv):
 
 
 def out_dirs(root, cfg):
-    """(outputs dir, models dir) of a single-model run under root."""
+    """(outputs dir, [models dir of each member]) of a run under root."""
     return (os.path.join(root, "outputs", cfg.out_dir,
                          f"{cfg.result_name}_{cfg.obs}"),
-            os.path.join(root, "models", cfg.out_dir,
-                         f"{cfg.models[0]}_{cfg.obs}", cfg.week))
+            [os.path.join(root, "models", cfg.out_dir, f"{m}_{cfg.obs}",
+                          cfg.week) for m in cfg.models])
 
 
-def check_tree(root, out, suffix):
-    """The run's outputs under root are the JAX CLI's tree, file by file:
-    the RPSS netcdfs, best_hparams and profile, and the winners manifest
-    with best_model_{arch}_{fold}_{suffix}.pt."""
+def tree_files(root, out, suffix):
+    """The files of the JAX CLI's tree that a run writes under root: the
+    RPSS netcdfs, best_hparams and profile, and per member the winners
+    manifest with best_model_{arch}_{fold}_{suffix}.pt."""
     cfg, wk, arch = out.config, out.config.week, out.config.architecture
-    odir, mdir = out_dirs(root, cfg)
-    want = ([os.path.join(odir, f"ELR_rpss_{t}_{wk}.nc")
+    odir, mdirs = out_dirs(root, cfg)
+    return ([os.path.join(odir, f"ELR_rpss_{t}_{wk}.nc")
              for t in ("train", "test")]
             + [os.path.join(odir, f"{arch}_rpss_{t}_{wk}.nc")
                for t in ("train", "val", "test")]
             + [os.path.join(odir, f"{s}_{wk}.json")
                for s in ("best_hparams", "profile")]
-            + [os.path.join(mdir, f"winners_{wk}.json")]
-            + [os.path.join(mdir, f"best_model_{arch}_{i}_{suffix}.pt")
-               for i in range(out.nn.masks.n_folds)])
+            + [os.path.join(mdir, f) for mdir in mdirs for f in
+               [f"winners_{wk}.json"]
+               + [f"best_model_{arch}_{i}_{suffix}.pt"
+                  for i in range(out.nn.masks.n_folds)]])
+
+
+def check_tree(root, outs, suffix, extra=()):
+    """The files under root are exactly the trees of the runs `outs` (and
+    the `extra` paths), file by file; returns their count."""
+    want = sorted([f for out in outs for f in tree_files(root, out, suffix)]
+                  + list(extra))
     found = sorted(os.path.join(r, f) for r, _, fs in os.walk(root)
                    for f in fs)
-    check(found == sorted(want), f"outputs: missing "
+    check(found == want, f"outputs: missing "
           f"{sorted(set(want) - set(found))}, unexpected "
           f"{sorted(set(found) - set(want))}")
     return len(found)
@@ -425,20 +480,54 @@ def expected_launches(torch, out, load=False):
     the dx of every kernel conv but the first (its input, the image, needs
     no gradient); per epoch one val forward over the val rows; per fold one
     winner forward over all rows (a load runs only these). Eval forwards
-    run in row chunks (engine.row_chunk). Returns (count, its terms)."""
-    from s2s_ismr_tpu_torch.train.engine import row_chunk
-    cfg = out.config
-    n_conv = {"unet": 4 * max(cfg.tuning.n_blocks) + 2, "cnn": 4,
-              "mlp": 0}[cfg.architecture]
-    F, T = out.nn.labels.shape[:2]
-    chunk = row_chunk(torch.empty((1,) + out.nn.labels.shape[2:]))
-    val_rows = int(out.nn.masks.val.sum(1).max())
+    run in row chunks (engine.row_chunk). A U-Net has 4 n_blocks + 2
+    kernel convs: a sweep counts each lane (fold x trial) at its own
+    trial's depth, from its epochs in the sweep's epochs_table, and each
+    fold's winner forward at its winner's depth, summed over the models of
+    an MME; a fixed training (or its load) runs the grid's first trial.
+    Returns (count, its terms)."""
+    from s2s_ismr_tpu_torch.pipelines.tune import resolve_batch_sizes
+    from s2s_ismr_tpu_torch.train.engine import row_chunk, train_batches
+    from s2s_ismr_tpu_torch.train.sweep import enumerate_trials
+    cfg, nn = out.config, out.nn
+    F, T = nn.labels.shape[:2]
+    chunk = row_chunk(torch.empty((1,) + nn.labels.shape[2:]))
+    val_chunks = -(-int(nn.masks.val.sum(1).max()) // chunk)
     fwd_chunks = -(-T // chunk)
+    trials = enumerate_trials(resolve_batch_sizes(cfg.tuning, T))
+
+    def depth(t):
+        return 4 * t.n_blocks + 2
+    if cfg.architecture == "unet" and nn.sweeps and not load:
+        count = steps = epochs = 0
+        for sw in nn.sweeps.values():
+            for f in range(F):
+                n_train = int(nn.masks.train[f].sum())
+                for t in trials:
+                    e = int(sw.epochs_table[f, t.index])
+                    s = e * train_batches(n_train, t.batch_size)
+                    count += (s * (2 * depth(t) - 1)
+                              + e * depth(t) * val_chunks)
+                    steps, epochs = steps + s, epochs + e
+            count += sum(depth(t) for t in sw.best_trial) * fwd_chunks
+        check(steps == nn.train_steps and epochs == nn.epochs_run,
+              f"per-lane steps {steps} / epochs {epochs} differ from the "
+              f"run's {nn.train_steps} / {nn.epochs_run}")
+        winners = [t.n_blocks for sw in nn.sweeps.values()
+                   for t in sw.best_trial]
+        terms = (f"{steps} steps and {epochs} epochs over "
+                 f"{len(nn.sweeps)} x {F} x {len(trials)} lanes at n_blocks "
+                 f"{sorted({t.n_blocks for t in trials})}, "
+                 f"{len(winners)} winner forwards of {T} rows in "
+                 f"{fwd_chunks} chunk(s) at n_blocks {winners}")
+        return count, terms
+    n_conv = {"unet": depth(trials[0]), "cnn": 4,
+              "mlp": 0}[cfg.architecture]
     count = F * n_conv * fwd_chunks
     if not load and n_conv:
-        count += (out.nn.train_steps * (2 * n_conv - 1)
-                  + out.nn.epochs_run * n_conv * -(-val_rows // chunk))
-    terms = (f"{out.nn.train_steps} steps, {out.nn.epochs_run} epochs, "
+        count += (nn.train_steps * (2 * n_conv - 1)
+                  + nn.epochs_run * n_conv * val_chunks)
+    terms = (f"{nn.train_steps} steps, {nn.epochs_run} epochs, "
              f"{F} winner forwards of {T} rows in {fwd_chunks} chunk(s), "
              f"{n_conv} kernel convs per forward")
     return count, terms
@@ -455,9 +544,9 @@ def pipeline_path(torch, conv, card, d):
     argv = ["tune_ECMWF_com", "--synthetic", "--fast"]
     out, seconds, launches = cli_run(torch, conv, argv + ["--out", d])
     cfg, wk = out.config, out.config.week
-    odir, mdir = out_dirs(d, cfg)
+    odir, (mdir,) = out_dirs(d, cfg)
     n_folds = out.nn.masks.n_folds
-    n = check_tree(d, out, "tuned")
+    n = check_tree(d, [out], "tuned")
     print(f"  outputs: {n} files, as the JAX CLI writes them")
 
     bundle = tune.load_bundles(cfg)["ECMWF"]
@@ -528,7 +617,7 @@ def modes_path(torch, conv, card, tmp):
     def report(name, root, run, suffix, load=False):
         nonlocal total
         out, seconds, launches = run
-        n = check_tree(root, out, suffix)
+        n = check_tree(root, [out], suffix)
         means = check_rpss(root, out, land)
         expected, terms = expected_launches(torch, out, load)
         steps = out.nn.train_steps
@@ -897,8 +986,10 @@ def realtime_path(torch, conv, card, unet_root, cnn_root, tmp):
         attrib.gradcam(unet, unet_state, x)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t)
-    dev = bench.device_ms(torch, lambda: attrib.gradcam(unet, unet_state, x),
-                          reps=10)
+    dev = bench.device_ms_many(
+        torch, [lambda: attrib.gradcam(unet, unet_state, x)], reps=10)
+    check(dev is not None, "GradCAM: the profiler saw no device time")
+    dev = dev[0]
     print(f"  GradCAM of {x.shape[0]} rows (one chunk): wall "
           f"{np.median(secs[1:]) * 1e3:.3f} ms median of 5 (first "
           f"{secs[0] * 1e3:.3f} ms), device {dev:.4f} ms per call on {card}")
@@ -1306,10 +1397,10 @@ def lane_kernel_checks(torch, conv, shapes):
 
 
 def lane_kernel_times(torch, conv, shapes, card):
-    """(b) of phase 10: device time per call, by torch.profiler, of the
-    lane mode, of L one-lane launches and of cuDNN's grouped F.conv2d
-    (groups = L, TF32 off), in turns (lane mode, one-lane launches,
-    cuDNN, lane mode), forward and dx mode (ELU; cuDNN's dx a grouped conv
+    """(b) of phase 10: device time per call, by torch.profiler (one
+    window per shape and mode), of the lane mode, of L one-lane launches
+    and of cuDNN's grouped F.conv2d (groups = L, TF32 off), in turns
+    (lane mode, one-lane launches, cuDNN, lane mode), forward and dx mode (ELU; cuDNN's dx a grouped conv
     of g with the adjoint taps), summed over the shapes, with the bound
     (L times the one-lane bound). Returns {L: {mode: {key: ms}}}."""
     import torch.nn.functional as F
@@ -1336,9 +1427,8 @@ def lane_kernel_times(torch, conv, shapes, card):
                            lambda: F.conv2d(gg, wa, None, padding=1,
                                             groups=lanes))}
                 for mode, (lane, serial, lib) in calls.items():
-                    t = [bench.device_ms(torch, f)
-                         for f in (lane, serial, lib, lane)]
-                    check(None not in t, f"L={lanes} {shape} {mode}: the "
+                    t = bench.device_ms_many(torch, (lane, serial, lib, lane))
+                    check(t is not None, f"L={lanes} {shape} {mode}: the "
                           f"profiler saw no device time")
                     s = sums[mode]
                     s["ms"] += (t[0] + t[3]) / 2
@@ -1424,10 +1514,9 @@ def lanes_path(torch, conv, card, work):
     print(f"  (c) run_unet_sweep of the fast tune_ECMWF_com ({x.shape[0]} "
           f"rows of 32x32, {fm.n_folds} folds, learning rates "
           f"{grid.learning_rates}: {fm.n_folds * len(grid.learning_rates)} "
-          f"lanes per bucket), 'vmap' and 'serial' in turns")
-    runs = {"vmap": [], "serial": []}
-    lane_launches = None
-    for mode in ("vmap", "serial", "vmap"):
+          f"lanes per bucket), 'vmap' then 'serial'")
+    runs = {}
+    for mode in ("vmap", "serial"):
         res, secs, n_launch, n_lane = sweep(mode)
         F = fm.n_folds
         if mode == "vmap":
@@ -1439,7 +1528,7 @@ def lanes_path(torch, conv, card, work):
                   f"{want_lane} = {bs} batched steps x {2 * n_conv - 1} + "
                   f"{be} batched epochs x {n_conv}), {n_launch - n_lane} "
                   f"one-lane launches (expected {F * n_conv})")
-            lane_launches = n_lane if lane_launches is None else lane_launches
+            lane_launches = n_lane
             terms = (f"{n_lane} lane-mode launches = {bs} batched steps x "
                      f"{2 * n_conv - 1} + {be} batched epochs x {n_conv}, "
                      f"{n_launch - n_lane} one-lane (winner forwards)")
@@ -1451,23 +1540,18 @@ def lanes_path(torch, conv, card, work):
             terms = f"{n_launch} launches, as its steps imply"
         check(np.isfinite(res.val_loss_table).all(),
               f"{mode}: non-finite val loss")
-        runs[mode].append((res, secs))
+        runs[mode] = res
         print(f"  {mode}: {res.train_steps} steps of {res.epochs_run} lane "
               f"epochs in {secs:.2f} s = {res.train_steps / secs:.1f} "
               f"steps/s ({res.timings['execute_s']:.2f} s training); {terms}"
               f" on {card}")
-    rv, rs = runs["vmap"][0][0], runs["serial"][0][0]
+    rv, rs = runs["vmap"], runs["serial"]
     dv = float(np.abs(rv.val_loss_table - rs.val_loss_table).max())
     check(dv <= 2e-4, f"vmap vs serial val tables differ by {dv:.3e}")
     check([t.index for t in rv.best_trial] == [t.index for t in rs.best_trial],
           "vmap and serial sweeps pick other winners")
-    # cuDNN is not held deterministic in training (nor is it in JAX's): a
-    # repeat is reported, not required to be bit-equal
-    dr = float(np.abs(runs["vmap"][1][0].val_loss_table
-                      - rv.val_loss_table).max())
     print(f"  vmap vs serial: val tables within {dv:.3e}, the same winners "
-          f"{[t.index for t in rv.best_trial]}; the vmap repeat within "
-          f"{dr:.3e} of the first")
+          f"{[t.index for t in rv.best_trial]}")
     idle = {}
     for mode in ("vmap", "serial"):
         (res, _, _, _), wall, busy = device_busy(
@@ -1533,6 +1617,233 @@ def lanes_path(torch, conv, card, work):
     return launches, max_abs, times, lane_launches, idle
 
 
+# phase 11's suite: every config with its whole grid, cut to 2 folds and 1
+# epoch; the port's expectations file holds its RPSS means on the card
+SUITE_ARGV = ["suite", "--synthetic", "--folds", "2", "--epochs", "1"]
+
+
+def expected_path():
+    """The port's `suite --check` file, shipped with the package."""
+    import s2s_ismr_tpu_torch
+    return os.path.join(os.path.dirname(s2s_ismr_tpu_torch.__file__),
+                        "expected", "suite_rpss_h100_cut.json")
+
+
+def suite_configs():
+    """The eight configs as `run.main(SUITE_ARGV)` resolves them."""
+    from s2s_ismr_tpu_torch import run
+    from s2s_ismr_tpu_torch.pipelines import CONFIGS
+    args = run._parser().parse_args(SUITE_ARGV)
+    return [run._resolve(name, args) for name in CONFIGS]
+
+
+def grid_kernels(torch, conv, card):
+    """(a) of phase 11: the kernel at every kernel-conv shape of the eight
+    configs' tuning grids (every trial at its batch size on the config's
+    grid, from bench.config_shapes) against float64, forward, backward and
+    dx mode, every launch twice and bit-equal; the eval row counts' shapes
+    forward only; then the device times of the training shapes in turns
+    with cuDNN, summed per grid family, and each shape where cuDNN wins.
+    Returns (max abs err, summed times over the training shapes, the
+    number of training and eval shapes)."""
+    families = {}
+    for cfg in suite_configs():
+        train, evals = bench.config_shapes(torch, cfg)
+        fam = families.setdefault((cfg.tuning, train[0][1:3]), {
+            "configs": [], "train": train, "eval": []})
+        fam["configs"].append(cfg.name)
+        fam["eval"] += [e for e in evals if e not in fam["eval"]]
+    train, evals = [], []
+    for fam in families.values():
+        train += [t for t in fam["train"] if t not in train]
+        evals += [e for e in fam["eval"] if e not in evals + train]
+    old = bench.slice_shapes(torch, (2, 3), BATCH)
+    check(max(max(t[3:]) for t in train + evals) <= conv.MAX_CHANNELS,
+          "a grid shape is wider than the kernel takes")
+    n_new = len([t for t in train if t not in old])
+    print(f"  {len(train)} training shapes ({n_new} not among phase 3's), "
+          f"{len(evals)} eval shapes (val rows and T in row chunks) over "
+          f"{len(families)} grid families")
+    named = [t for t in train if t[3] == t[4] == 384 or t[1] == 3]
+    print(f"  named cases: C = O = 384 at 1x1 and 2x2 maps, and the 3x3 maps "
+          f"of the 24x24 grid")
+    max_abs = kernel_vs_plain(torch, conv, named)
+    print(f"  named cases: max abs err {max_abs:.3e} over {len(named)} "
+          f"shapes")
+    max_abs = max(max_abs, kernel_vs_plain(
+        torch, conv, [t for t in train if t not in named]))
+    print(f"  eval shapes, forward (ELU)")
+    max_abs = max(max_abs, kernel_vs_plain(torch, conv, evals,
+                                           backward=False, acts=("elu",)))
+    print(f"  max abs err {max_abs:.3e} over {len(train)} training and "
+          f"{len(evals)} eval shapes")
+
+    print(f"  device time per launch at the {len(train)} training shapes "
+          f"(kernel and cuDNN in turns; on {card})")
+    sums, per = kernel_times(torch, conv, train)
+    for fam in families.values():
+        name = (f"grid family {'+'.join(fam['configs'])} "
+                f"({fam['train'][0][1]}x{fam['train'][0][2]})")
+        fsums = {m: {k: sum(per[t][m][k] for t in fam["train"])
+                     for k in sums[m]} for m in sums}
+        print_sums(name, len(fam["train"]), fsums)
+    print_sums("all grid shapes", len(train), sums)
+    wins = [(t, m, per[t][m]["ms"] / per[t][m]["library_ms"])
+            for t in train for m in ("fwd", "dx")
+            if per[t][m]["library_ms"] < per[t][m]["ms"]]
+    print(f"  cuDNN faster at {len(wins)} of {2 * len(train)} (shape, mode) "
+          f"cases: " + "; ".join(f"{t} {m} {f:.2f}x" for t, m, f in wins))
+    return max_abs, sums, len(train), len(evals)
+
+
+def run_suite(torch, conv, argv):
+    """run.main(argv) for `suite` in-process on cuda, cuDNN deterministic,
+    its output captured; each config's kernel launch count set to 0 and
+    the peak device memory reset just before its run_pipeline and read
+    just after. Returns (exit code, {config: (TuneOutputs, wall s,
+    launches, peak bytes)}, suite_summary.json, captured stderr)."""
+    import contextlib
+    import io
+    from s2s_ismr_tpu_torch import run
+    from s2s_ismr_tpu_torch.pipelines import tune
+    from s2s_ismr_tpu_torch.train.engine import deterministic_cudnn
+    per, real = {}, tune.run_pipeline
+
+    def recording(cfg, *args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        conv.LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = real(cfg, *args, **kw)
+        torch.cuda.synchronize()
+        per[cfg.name] = (out, time.perf_counter() - t0, conv.LAUNCHES,
+                         torch.cuda.max_memory_allocated())
+        return out
+
+    tune.run_pipeline = recording
+    log, err = io.StringIO(), io.StringIO()
+    try:
+        with deterministic_cudnn(), contextlib.redirect_stdout(log), \
+                contextlib.redirect_stderr(err):
+            rc = run.main(argv)
+    finally:
+        tune.run_pipeline = real
+    out_dir = argv[argv.index("--out") + 1]
+    with open(os.path.join(out_dir, "suite_summary.json")) as fh:
+        summary = json.load(fh)
+    return rc, per, summary, err.getvalue()
+
+
+def suite_path(torch, conv, card, work):
+    """(b) of phase 11: the CLI's `suite` of all eight configs at the full
+    width of their grids (2 folds, 1 epoch) with --check against the
+    port's expectations file; per config the outputs tree, ELR and U-Net
+    test RPSS finite on land in every fold, the launches against the
+    per-trial count, wall, NN lane steps/s and peak device memory. Returns
+    the launches of the suite."""
+    import numpy as np
+    from s2s_ismr_tpu_torch.pipelines import CONFIGS, tune
+
+    d = os.path.join(work, "suite")
+    argv = SUITE_ARGV + ["--out", d, "--check", expected_path()]
+    t0 = time.perf_counter()
+    rc, per, summary, err = run_suite(torch, conv, argv)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"run.main({argv}) returned {rc}: {err[-2000:]}")
+    check(sorted(summary["configs"]) == sorted(CONFIGS) == sorted(per)
+          and not any("error" in r for r in summary["configs"].values()),
+          f"suite configs {summary['configs']}")
+    check(summary["check"]["ok"] and "[check] ok" in err,
+          f"suite --check: {summary['check']}")
+    with open(expected_path()) as fh:
+        tol = json.load(fh)["tolerance"]
+    print(f"  suite of {len(per)} configs: exit 0, every config ok, "
+          f"`[check] ok` against {os.path.relpath(expected_path())} "
+          f"(tolerance {tol!r})")
+    n = check_tree(d, [p[0] for p in per.values()], "tuned",
+                   extra=[os.path.join(d, "suite_summary.json")])
+    print(f"  outputs: {n} files, as the JAX CLI writes them")
+    launches = 0
+    for name, (out, seconds, n_launch, peak) in per.items():
+        cfg = out.config
+        # land: the grid's pixels with y everywhere finite (the mean over
+        # an MME's models); tune_ECMWF_full's zero-filled pad row is not
+        # land (its ELR RPSS is NaN, as in the reference)
+        ys = [b.y for b in tune.load_bundles(cfg).values()]
+        land = np.pad(~np.isnan(np.mean(ys, 0)).any(0),
+                      ((0, cfg.pad_y_rows), (0, 0)))
+        means = check_rpss(d, out, land, {"ELR": out.elr.rpss_test,
+                                          "unet": out.nn.rpss_test})
+        expected, terms = expected_launches(torch, out)
+        check(n_launch == expected, f"{name}: launches {n_launch}, expected "
+              f"{expected} ({terms})")
+        launches += n_launch
+        with open(out.paths["profile"]) as fh:
+            stages = json.load(fh)["stages_s"]
+        got = summary["configs"][name]
+        print(f"  {name}: {land.shape[0]}x{land.shape[1]}, T "
+              f"{out.nn.labels.shape[1]}; ELR / U-Net test RPSS means "
+              f"{got['elr_rpss_test_mean']!r} / {got['nn_rpss_test_mean']!r}"
+              f" (per fold on land: ELR {means['ELR']}, U-Net "
+              f"{means['unet']}); kernel launches {n_launch} = expected "
+              f"({terms}); wall {seconds:.2f} s (data {stages['data']} s, "
+              f"ELR {stages['elr']} s, NN {stages['nn']} s), "
+              f"{out.nn.train_steps} lane steps = "
+              f"{out.nn.train_steps / stages['nn']:.1f} lane steps/s in the "
+              f"NN stage; peak device memory {peak / 2**20:.1f} MiB on "
+              f"{card}")
+    steps = sum(p[0].nn.train_steps for p in per.values())
+    print(f"  suite wall {wall:.2f} s, {steps} lane steps, launches "
+          f"{launches}")
+    return launches
+
+
+def write_expected(torch, conv, card, path):
+    """The port's `suite --check` file from two runs of phase 11's suite
+    on this card: the first run's means, the tolerance the larger of 1e-5
+    and ten times the largest drift between the two runs."""
+    from s2s_ismr_tpu_torch.pipelines import CONFIGS
+    runs = []
+    with tempfile.TemporaryDirectory() as work:
+        for i in range(2):
+            t0 = time.perf_counter()
+            rc, per, summary, err = run_suite(
+                torch, conv, SUITE_ARGV + ["--out", os.path.join(work, str(i))])
+            check(rc == 0 and sorted(summary["configs"]) == sorted(CONFIGS),
+                  f"suite run {i}: exit {rc}: {err[-2000:]}")
+            print(f"  suite run {i + 1}: {time.perf_counter() - t0:.2f} s; "
+                  + "; ".join(f"{n} {w:.1f} s" for n, (_, w, _, _)
+                              in per.items()))
+            runs.append(summary)
+    keys = ("elr_rpss_test_mean", "nn_rpss_test_mean")
+    a, b = (r["configs"] for r in runs)
+    drift = max(abs(a[n][k] - b[n][k]) for n in a for k in keys)
+    tol = max(1e-5, 10 * drift)
+    doc = {
+        "_comment": (
+            f"Expectations for `python -m s2s_ismr_tpu_torch.run "
+            f"{' '.join(SUITE_ARGV)} --check <this file>` on the card: "
+            f"per-config ELR / U-Net test-RPSS means of all eight configs "
+            f"with every trial of their grids, cut to 2 folds and 1 epoch. "
+            f"Written by `python3 chip_smoke.py --write-expected` on {card} "
+            f"(nvidia-smi name, power limit), torch {torch.__version__}, "
+            f"CUDA {torch.version.cuda}, TF32 off, cuDNN deterministic. Two "
+            f"runs drifted by at most {drift!r}; the tolerance is "
+            + ("1e-5 (ten times the drift is smaller)" if tol == 1e-5 else
+               "ten times that drift")
+            + ". Valid only at these settings; other settings, backends "
+            f"or devices will not match."),
+        "backend": torch.cuda.get_device_name(0),
+        "settings": runs[0]["settings"],
+        "tolerance": tol,
+        "configs": {n: {k: a[n][k] for k in keys} for n in sorted(a)}}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(doc, fh, indent=1)
+        fh.write("\n")
+    print(f"  wrote {path}: largest drift {drift!r}, tolerance {tol!r}")
+
+
 def elr_cuda_vs_cpu(torch):
     """The ELR branch of the full tune_ECMWF_com and tune_2MME configs
     (10 folds) on cuda and on the CPU in this process; returns the cuda
@@ -1580,8 +1891,14 @@ def elr_cuda_vs_cpu(torch):
     return out
 
 
-def main():
+def main(argv=None):
     global bench
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--write-expected", metavar="PATH", default=None,
+                    help="only run phase 11's suite twice and write the "
+                         "port's suite --check file to PATH")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -1593,12 +1910,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        print("[1/10] device")
+        print("[1/11] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/10] build")
+        print("[2/11] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -1611,8 +1928,13 @@ def main():
               f"tile table / K chunk of the library {conv.kernel_tiles()} / "
               f"{conv.kernel_chunk()} differ from the wrapper's "
               f"{conv.TILES} / {conv._BK}")
+        if args.write_expected:
+            print(f"[11/11] (b) only: the suite twice -> "
+                  f"{args.write_expected}")
+            write_expected(torch, conv, card, args.write_expected)
+            return 0
 
-        print("[3/10] kernel vs plain (TF32 off), batch 16")
+        print("[3/11] kernel vs plain (TF32 off), batch 16")
         shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  the cnn's shapes (act none) and the multi_predictor first "
@@ -1640,54 +1962,48 @@ def main():
         for name, group, act in groups:
             print(f"  device time per launch at the {len(group)} {name} "
                   f"shapes (kernel and cuDNN in turns; on {card})")
-            for mode, s in kernel_times(torch, conv, group, act).items():
-                print(f"  {name} {mode} summed over {len(group)} shapes: "
-                      f"kernel {s['ms']:.4f} ms, cuDNN "
-                      f"{s['library_ms']:.4f} ms, plain "
-                      f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
-                      f"({s['bound_ms'] / s['ms']:.1%} of it; FLOP "
-                      f"{s['ops_ms']:.4f} ms, bytes {s['bytes_ms']:.4f} ms); "
-                      f"bound at 3xTF32 {s['bound_3xtf32_ms']:.4f} ms "
-                      f"({s['bound_3xtf32_ms'] / s['ms']:.1%} of it)")
+            sums, _ = kernel_times(torch, conv, group, act)
+            print_sums(name, len(group), sums)
+            for mode, s in sums.items():
                 for key, v in s.items():
                     times[mode][key] = times[mode].get(key, 0.0) + v
         print(f"  max abs err {max_abs:.3e}")
 
-        print("[4/10] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[4/11] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
         with tempfile.TemporaryDirectory() as work:
             unet_root = os.path.join(work, "tune")
-            print("[5/10] main path: `python -m s2s_ismr_tpu_torch.run "
+            print("[5/11] main path: `python -m s2s_ismr_tpu_torch.run "
                   "tune_ECMWF_com --synthetic --fast` in-process on cuda")
             launches += pipeline_path(torch, conv, card, unet_root)
 
-            print("[6/10] the other run modes of tune_ECMWF_com (fast "
+            print("[6/11] the other run modes of tune_ECMWF_com (fast "
                   "variant) in-process on cuda")
             modes_launches, modes_abs = modes_path(torch, conv, card,
                                                    os.path.join(work, "modes"))
             launches += modes_launches
             max_abs = max(max_abs, modes_abs)
 
-            print("[7/10] ELR branch of the full tune_ECMWF_com and tune_2MME "
+            print("[7/11] ELR branch of the full tune_ECMWF_com and tune_2MME "
                   "(10 folds), cuda vs CPU")
             elr = elr_cuda_vs_cpu(torch)
 
-            print("[8/10] realtime path on cuda: the CLI's `realtime` on "
+            print("[8/11] realtime path on cuda: the CLI's `realtime` on "
                   "phase 5's winners, the cnn's of phase 6, and the "
                   "operational forecast on a fake cache")
             launches += realtime_path(
                 torch, conv, card, unet_root,
                 os.path.join(work, "modes", "cnn"), work)
 
-            print("[9/10] reporting and profiler traces on cuda: the CLI's "
+            print("[9/11] reporting and profiler traces on cuda: the CLI's "
                   "`accs`, REL/BSS/RES and CC/ACC against float64, RPSS "
                   "records, and a traced fast tune run")
             launches += reporting_path(torch, conv, card, unet_root, elr,
                                        work)
 
-            print("[10/10] batched lanes (the conv kernel's lane mode, "
+            print("[10/11] batched lanes (the conv kernel's lane mode, "
                   "lane_dispatch='vmap'), the one-card mesh and bf16 on cuda")
             t10 = time.perf_counter()
             lanes_n, lanes_abs, lane_times, lane_launches, idle = \
@@ -1695,6 +2011,18 @@ def main():
             launches += lanes_n
             max_abs = max(max_abs, lanes_abs)
             print(f"  phase 10 wall {time.perf_counter() - t10:.2f} s")
+
+            print("[11/11] the eight configs' tuning grids at full width on "
+                  "cuda: the kernel at every grid conv shape, and the CLI's "
+                  "`suite --folds 2 --epochs 1 --check`")
+            t11 = time.perf_counter()
+            grid_abs, grid_times, n_train, n_eval = grid_kernels(torch, conv,
+                                                                 card)
+            max_abs = max(max_abs, grid_abs)
+            print(f"  (a) took {time.perf_counter() - t11:.1f} s")
+            suite_launches = suite_path(torch, conv, card, work)
+            launches += suite_launches
+            print(f"  phase 11 wall {time.perf_counter() - t11:.2f} s")
         check("jax" not in sys.modules, "jax was imported")
         jax_pkg = [m for m in sys.modules
                    if m == "s2s_ismr_tpu" or m.startswith("s2s_ismr_tpu.")]
@@ -1730,7 +2058,12 @@ def main():
         "lanes_L": LANES[0], "lanes20_L": LANES[1], **lanes,
         "lanes_launches": lane_launches,
         "lanes_idle_share": idle["vmap"],
-        "serial_idle_share": idle["serial"]}]}))
+        "serial_idle_share": idle["serial"],
+        "grids_shapes": n_train, "grids_eval_shapes": n_eval,
+        **{f"grids_{prefix}{key}": grid_times[mode][key]
+           for mode, prefix in (("fwd", ""), ("dx", "dx_"))
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "suite_launches": suite_launches}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

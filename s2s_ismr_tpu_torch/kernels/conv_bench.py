@@ -53,28 +53,82 @@ EDGE_SHAPES = ((2, 1, 1, 3, 5), (3, 64, 64, 17, 33), (1, 33, 65, 2, 1),
                (1, 9, 70, 130, 40), (2, 4, 4, 384, 384))
 
 
-def slice_shapes(torch, filters=(2, 3), batch=16, device="cuda"):
-    """(N, H, W, C, O) of every kernel conv of the tune_ECMWF_com U-Nets
-    with these filters on the 32x32 grid, recorded from one forward each,
-    in first-seen order."""
+def unet_shapes(torch, ucfg, n, hw, c_in=1, device="cuda"):
+    """(N, H, W, C, O) of every kernel conv of one forward of the port's
+    U-Net of `ucfg` on n rows of hw = (H, W) images with c_in channels, in
+    call order (recorded by forward pre-hooks)."""
     from s2s_ismr_tpu_torch.models.layers import FusedConv3x3
-    from s2s_ismr_tpu_torch.models.unet import UNet, UNetConfig
+    from s2s_ismr_tpu_torch.models.unet import UNet
     shapes = []
 
     def hook(mod, args):
-        s = tuple(args[0].shape) + (mod.conv.kernel.shape[-1],)
-        if s not in shapes:
-            shapes.append(s)
-    for f in filters:
-        model = UNet(UNetConfig(filters=f, n_blocks=3), 1,
-                     generator=torch.Generator().manual_seed(0),
-                     device=device)
-        for m in model.modules():
-            if isinstance(m, FusedConv3x3):
-                m.register_forward_pre_hook(hook)
-        with torch.no_grad():
-            model(torch.zeros(batch, 32, 32, 1, device=device))
+        shapes.append(tuple(args[0].shape) + (mod.conv.kernel.shape[-1],))
+    model = UNet(ucfg, c_in, generator=torch.Generator().manual_seed(0),
+                 device=device)
+    for m in model.modules():
+        if isinstance(m, FusedConv3x3):
+            m.register_forward_pre_hook(hook)
+    with torch.no_grad():
+        model(torch.zeros((n,) + tuple(hw) + (c_in,), device=device))
     return shapes
+
+
+def trial_shapes(torch, grid, hw, c_in=1, rows=None, device="cuda"):
+    """(N, H, W, C, O) of every kernel conv of every trial of the tuning
+    grid on hw images, at the trial's batch size (or at each row count of
+    `rows`), in the trials' product order, each shape once."""
+    from s2s_ismr_tpu_torch.models.unet import UNetConfig
+    from s2s_ismr_tpu_torch.train.sweep import enumerate_trials
+    shapes, seen = [], set()
+    for t in enumerate_trials(grid):
+        for n in rows or (t.batch_size,):
+            # the conv shapes depend on the rows, filters and depth only
+            if (n, t.filters, t.n_blocks) in seen:
+                continue
+            seen.add((n, t.filters, t.n_blocks))
+            ucfg = UNetConfig(filters=t.filters, n_blocks=t.n_blocks,
+                              ct_kernel=t.ct_kernel)
+            for s in unet_shapes(torch, ucfg, n, hw, c_in, device):
+                if s not in shapes:
+                    shapes.append(s)
+    return shapes
+
+
+def config_shapes(torch, cfg, device="cuda"):
+    """(training shapes, eval shapes) of a PipelineConfig's tune run on its
+    synthetic data: every kernel conv of every trial of cfg.tuning at the
+    trial's batch size on the config's grid, and at the eval row counts,
+    the val rows (each epoch's val forward) and all T (the winner
+    forward), each cut into engine.row_chunk chunks."""
+    from s2s_ismr_tpu_torch.pipelines.tune import (_apply_pad, load_bundles,
+                                                   resolve_batch_sizes)
+    from s2s_ismr_tpu_torch.train import splits
+    from s2s_ismr_tpu_torch.train.engine import row_chunk
+    b = _apply_pad(cfg, load_bundles(cfg)[cfg.models[0]])
+    x = b.predictor_images(cfg.predictor)
+    fm = splits.bootstrap_masks(b.years, cfg.n_bootstraps,
+                                frac_valid=cfg.nn_frac_valid,
+                                frac_test=cfg.nn_frac_test)
+    chunk = row_chunk(torch.empty((1,) + x.shape[1:]))
+    rows = []
+    for n in (int(fm.val.sum(1).max()), x.shape[0]):
+        rows += [min(chunk, n - i) for i in range(0, n, chunk)]
+    grid = resolve_batch_sizes(cfg.tuning, x.shape[0])
+    hw, c_in = x.shape[1:3], x.shape[3]
+    return (trial_shapes(torch, grid, hw, c_in, device=device),
+            trial_shapes(torch, grid, hw, c_in, rows=rows, device=device))
+
+
+def slice_shapes(torch, filters=(2, 3), batch=16, device="cuda"):
+    """(N, H, W, C, O) of every kernel conv of the tune_ECMWF_com U-Nets
+    with these filters (n_blocks 3) on the 32x32 grid at `batch` rows, in
+    first-seen order."""
+    from dataclasses import replace
+
+    from s2s_ismr_tpu_torch.pipelines import get_config
+    grid = replace(get_config("tune_ECMWF_com").tuning,
+                   n_filters=tuple(filters), batch_sizes=(batch,))
+    return trial_shapes(torch, grid, (32, 32), device=device)
 
 
 def bound_parts(shape, dx=False, elu=True, flops=PEAK_F32_FLOPS):
@@ -99,23 +153,37 @@ def bound(shape, dx=False, elu=True, flops=PEAK_F32_FLOPS):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def device_ms(torch, fn, reps=50, tries=3):
-    """Device time per call of fn() by torch.profiler (every kernel fn
-    launches, summed), after a warm-up; None if the profiler saw none in
-    `tries` windows (now and then a window comes back empty on the card)."""
+def device_ms_many(torch, fns, reps=50, tries=3):
+    """Device time per call of each fn of `fns` from ONE torch.profiler
+    window: fn i's `reps` calls, then a marker kernel (torch.cuda._sleep's
+    spin_kernel); the device events up to each marker are that fn's. One
+    window instead of one per fn saves the profiler's fixed cost per
+    window. None if no window held every group (now and then a window
+    comes back empty on the card)."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
+    for fn in fns:
+        for _ in range(3):
+            fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            for fn in fns:
+                for _ in range(reps):
+                    fn()
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", 0)
-                 for e in prof.key_averages())
-        if us:
-            return us / 1e3 / reps
+        events = sorted((e for e in prof.events()
+                         if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                        key=lambda e: e.time_range.start)
+        groups, us = [], 0.0
+        for e in events:
+            if "spin_kernel" in e.name:
+                groups.append(us)
+                us = 0.0
+            else:
+                us += e.time_range.elapsed_us()
+        if len(groups) == len(fns) and all(groups):
+            return [g / 1e3 / reps for g in groups]
     return None
 
 
@@ -314,7 +382,10 @@ def run_tiles(torch, conv, out_dir, reps=30):
     from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device="cuda").manual_seed(1)
     one = torch.empty(1, device="cuda")
-    floor = device_ms(torch, lambda: one.fill_(0.0)) * 1e3
+    floor = device_ms_many(torch, [lambda: one.fill_(0.0)])
+    if floor is None:
+        raise RuntimeError("the profiler saw no device time for the fill")
+    floor = floor[0] * 1e3
     print(f"  floor: a one-element fill kernel takes {floor:.2f} us")
     rows = []
     for shape in slice_shapes(torch):

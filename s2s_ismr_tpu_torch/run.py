@@ -314,6 +314,17 @@ def _barplot(args):
     return 0
 
 
+def suite_fingerprint(args):
+    """The run settings a suite records in its summary: --resume only
+    reuses results produced under identical settings (a fast smoke must
+    not satisfy a later production resume), and a --check file holds
+    numbers valid at its own."""
+    return {k: getattr(args, k) for k in
+            ("fast", "epochs", "folds", "standardize", "output",
+             "predictor", "source", "seed", "step", "training_type",
+             "batch_size", "week", "cpu")}
+
+
 def _suite(args):
     """Several configs (x weeks) in one process; the summary is rewritten
     atomically after every config, so a killed session can --resume."""
@@ -340,12 +351,7 @@ def _suite(args):
     device = _device(args)
     if device is None:
         return 2
-    # --resume only reuses results produced under identical settings (a
-    # fast smoke must not satisfy a later production resume)
-    fingerprint = {k: getattr(args, k) for k in
-                   ("fast", "epochs", "folds", "standardize", "output",
-                    "predictor", "source", "seed", "step", "training_type",
-                    "batch_size", "week", "cpu")}
+    fingerprint = suite_fingerprint(args)
     t0 = time.time()
     prior_total = 0.0   # wall already spent in resumed-over sessions
     spath = os.path.join(args.out, "suite_summary.json")

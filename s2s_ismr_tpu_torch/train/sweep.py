@@ -103,6 +103,8 @@ class SweepResult:
     train_steps: int = 0                 # optimizer steps executed
     epochs_run: int = 0                  # epochs executed, summed over lanes
     timings: Dict[str, float] = field(default_factory=dict)  # phase seconds
+    epochs_table: np.ndarray | None = None   # (F, n_trials) epochs each
+    # lane ran, in product order (its steps: epochs x train_batches)
 
 
 def lane_generator(base_seed, fold_idx, trial_idx, device="cpu",
@@ -270,7 +272,8 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
     'vmap' or 'mesh'); a 'vmap' sweep also the batched loop's
     batched_steps and batched_epochs, summed over buckets.
     train_steps counts every lane's own steps (its epochs run times its
-    batches holding a training sample) in every mode.
+    batches holding a training sample) in every mode; epochs_table holds
+    each lane's epochs run, so a lane's steps and depth can be read apart.
     """
     if lane_dispatch not in _DISPATCH:
         raise ValueError(f"lane_dispatch={lane_dispatch!r}: one of "
@@ -292,6 +295,7 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
 
     trials = enumerate_trials(grid)
     val_table = np.full((F, len(trials)), np.inf, np.float32)
+    epochs_table = np.zeros((F, len(trials)), np.int64)
     lane_state: Dict[Tuple[int, int], Any] = {}
     lane_vloss: Dict[Tuple[int, int], torch.Tensor] = {}
     total_steps = total_epochs = batched_steps = batched_epochs = 0
@@ -318,6 +322,7 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
             batched_steps += steps
             batched_epochs += n_epochs
         for (f, t), (best, vloss, n_ep) in zip(lanes, results):
+            epochs_table[f, t.index] = n_ep
             total_epochs += n_ep
             total_steps += n_ep * train_batches(int(train_masks[f].sum()),
                                                 key_[0])
@@ -356,7 +361,8 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
         winner_configs=winner_cfgs,
         train_steps=total_steps,
         epochs_run=total_epochs,
-        timings=timings)
+        timings=timings,
+        epochs_table=epochs_table)
 
 
 @dataclass
