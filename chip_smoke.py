@@ -87,7 +87,7 @@ line is printed:
      tile; (b) the device time of the lane mode, of L one-lane launches
      and of cuDNN's grouped conv (groups = L) in turns, beside L times
      the one-lane bound; (c) run_unet_sweep of the fast tune_ECMWF_com
-     with learning rates (1e-3, 1e-4) (4 lanes per bucket),
+     with learning rates (1e-3, 1e-4) (4 lanes per bucket), 3 epochs,
      lane_dispatch 'vmap' then 'serial': launches exact (27 lane-mode
      launches per batched step, 14 per batched val epoch, 14 one-lane per
      winner), val tables within 2e-4 and the same winners, steps/s of
@@ -113,16 +113,44 @@ line is printed:
      U-Net test RPSS finite on land in every fold, each config's launches
      equal to the per-trial count, its wall, NN lane steps/s and peak
      device memory;
+  12. (run between phase 11's (a) and (b): after the suite's millions of
+     launches torch.profiler loses device events) IITM's 24 members at
+     64x64 and the weeks on cuda, TF32 off, cuDNN deterministic: (a) the
+     conv kernel at the multi_predictor first conv of every tune_IITM_full
+     trial (C = 24: (16, 64, 64, 24, 8) and (16, 64, 64, 24, 12)) as
+     phase 3 checks its shapes, and forward only at its val-row and T eval
+     shapes and at the stacked predictor's eval chunks (488 rows, and the
+     val rows' and T rows' last chunks of 160 and 240) of every conv of
+     n_blocks 3 / filters 2 and n_blocks 5 / filters 3; their device times in turns with cuDNN and each shape's
+     kernel / cuDNN ratio; (b) `run.main(["tune_IITM_full", "--synthetic",
+     "--predictor", "multi_predictor", "--folds", "2", "--epochs", "1",
+     ...])`: all 18 trials, the manifest's input shape (1, 64, 64, 24),
+     launches exact, RPSS finite on land, the winners reloaded bit-equal,
+     a CPU forward of the first 64 rows within 1e-5; (c) the same config
+     with `--predictor stacked --training-type train`, then `load` on its
+     --out: predictions (2, 10488, 64, 64, 3), 22 row chunks per winner
+     forward, launches exact, the load bit-equal, a CPU forward of the
+     last 64 rows within 1e-5; (d) the peak device memory of (b) and (c)
+     by stage (data, labels, ELR, NN training, winner eval, scores); (e)
+     `run.main(["suite", "--configs", "tune_ECMWF_com,tune_2MME",
+     "--week", "wk1,wk2", "--fast", "--folds", "2", "--epochs", "1",
+     ...])`: every (config, week)'s tree file by file, the week's leads,
+     launches exact; the same with --resume runs nothing; a wk1 `load`
+     bit-equal to the suite's wk1 run; wk1 winners copied under wk2
+     refused with a ValueError naming the week; rpss_records rows for
+     both weeks;
 then checks that neither jax nor any module of the JAX package
 (s2s_ismr_tpu) was loaded; prints the kernels JSON line (launches summed
-over phases 4, 5, 6, 8, 9, 10 and 11; times and bounds summed over the
+over phases 4, 5, 6, 8, 9, 10, 11 and 12; times and bounds summed over the
 shapes of phase 3, the forward under ms / plain_ms / library_ms /
 bound_ms / bound_3xtf32_ms, the dx mode under dx_*; phase 10's lane mode
 at L = 4 under lanes_* (lanes_serial_ms: L one-lane launches,
 lanes_library_ms: cuDNN grouped), at L = 20 under lanes20_*,
 lanes_launches: the lane-mode launches of (c)'s vmap sweep, and
 both modes' idle shares; phase 11's sums over its training shapes under
-grids_*, its shape counts and suite_launches), the card line, then the
+grids_*, its shape counts and suite_launches; phase 12's forward sums over
+its eval shapes under iitm_*, over the first convs under iitm_first_* and
+iitm_first_dx_*, its shape count and launches), the card line, then the
 result line {"ok": true, ...}.
 
     python3 chip_smoke.py --write-expected PATH
@@ -134,6 +162,7 @@ tolerance the larger of 1e-5 and ten times the two runs' largest drift.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -246,11 +275,12 @@ def kernel_vs_plain(torch, conv, shapes, backward=True,
     return max_abs
 
 
-def kernel_times(torch, conv, shapes, act="elu"):
+def kernel_times(torch, conv, shapes, act="elu", modes=("fwd", "dx")):
     """Device time per launch at each shape, by torch.profiler, of the
     kernel and of cuDNN's F.conv2d (the library yardstick, TF32 off), in
     turns (kernel, cuDNN, kernel, cuDNN), and of the plain version once:
-    the forward (bias + act) and the dx mode (for ELU: dx and g'). cuDNN's
+    the forward (bias + act) and the dx mode (for ELU: dx and g'), or the
+    `modes` of these that the path runs at these shapes. cuDNN's
     dx is one F.conv2d of g with the adjoint taps made beforehand, so for
     ELU it does less than the kernel (no ELU', no g'). A shape's ten
     timings come from one profiler window (bench.device_ms_many; at phase
@@ -263,7 +293,7 @@ def kernel_times(torch, conv, shapes, act="elu"):
     keys = ("ms", "library_ms", "plain_ms", "bound_ms", "ops_ms",
             "bytes_ms", "bound_3xtf32_ms")
     tf32x3 = bench.PEAK_TF32_FLOPS / 3
-    sums = {m: dict.fromkeys(keys, 0.0) for m in ("fwd", "dx")}
+    sums = {m: dict.fromkeys(keys, 0.0) for m in modes}
     per_shape = {}
     for shape in shapes:
         x, k, b, g = bench.inputs(torch, shape, gen)
@@ -281,6 +311,7 @@ def kernel_times(torch, conv, shapes, act="elu"):
                 "dx": (lambda: conv._dx_call(g, out, k, act),
                        lambda: F.conv2d(g_nchw, k_adj, None, padding=1),
                        lambda: conv.conv3x3_dx_plain(g, out, k, act))}
+            calls = {m: calls[m] for m in modes}
             order = [f for kern, lib, plain in calls.values()
                      for f in (kern, lib, kern, lib, plain)]
             ts = bench.device_ms_many(torch, order)
@@ -1499,7 +1530,10 @@ def lanes_path(torch, conv, card, work):
     n_conv = 4 * max(grid.n_blocks) + 2
     launches = 0
 
-    def sweep(mode, epochs=cfg.epochs, **kw):
+    # 3 of the fast variant's 6 epochs: the checks below read launches per
+    # step and epoch and the val tables, not depth, and the script must
+    # keep within its time with phase 12
+    def sweep(mode, epochs=3, **kw):
         nonlocal launches
         conv.LAUNCHES = conv.LANE_LAUNCHES = 0
         torch.cuda.synchronize()
@@ -1798,6 +1832,366 @@ def suite_path(torch, conv, card, work):
     return launches
 
 
+# phase 12: IITM's 24 members on tune_IITM_full's 64x64 grid (the
+# multi_predictor at the full grid, the stacked predictor through `train`
+# and `load`), and the weeks cross product with its persistence seams;
+# folds and epochs cut as phase 11's, the weeks on the fast grids
+IITM = "tune_IITM_full"
+IITM_ARGV = [IITM, "--synthetic", "--folds", "2", "--epochs", "1"]
+WEEKS = ("wk1", "wk2")
+WEEK_CONFIGS = ("tune_ECMWF_com", "tune_2MME")
+WEEK_FLAGS = ["--synthetic", "--fast", "--folds", "2", "--epochs", "1"]
+# (n_blocks, filters) of the stacked trials whose eval chunks (a) checks:
+# the grid's shallowest and narrowest (the one `train` runs) and its
+# deepest and widest
+STACKED_TRIALS = ((3, 2), (5, 3))
+
+
+def iitm_config(predictor):
+    """tune_IITM_full as `run.main(IITM_ARGV + ['--predictor', p])`
+    resolves it."""
+    from s2s_ismr_tpu_torch import run
+    args = run._parser().parse_args(IITM_ARGV + ["--predictor", predictor])
+    return run._resolve(IITM, args)
+
+
+def member_shapes(torch, device="cuda"):
+    """(a)'s shapes: the multi_predictor first conv at every trial of
+    tune_IITM_full's grid (C = the members) at batch 16, and at the val
+    rows and T; and the stacked predictor's eval chunks (full chunks and
+    the val rows' and T rows' last ones) of every conv of STACKED_TRIALS.
+    Returns (training shapes, multi_predictor eval shapes, stacked eval
+    shapes)."""
+    from dataclasses import replace
+    train, evals = bench.config_shapes(torch, iitm_config("multi_predictor"),
+                                       device)
+    members, side = train[0][3], train[0][1]
+    first = [s for s in train if s[3] == members and s[1] == side]
+    evals = [s for s in evals if s[3] == members and s[1] == side]
+    cfg, stacked = iitm_config("stacked"), []
+    for n_blocks, filters in STACKED_TRIALS:
+        one = replace(cfg, tuning=replace(
+            cfg.tuning, n_blocks=(n_blocks,), n_filters=(filters,),
+            ct_kernels=cfg.tuning.ct_kernels[:1]))
+        stacked += [s for s in bench.config_shapes(torch, one, device)[1]
+                    if s not in stacked]
+    return first, evals, stacked
+
+
+def member_kernels(torch, conv, card):
+    """(a) of phase 12: the kernel at member_shapes' shapes against float64
+    (the multi_predictor first convs forward, backward and dx mode; the
+    eval shapes forward), every launch twice and bit-equal; then their
+    device times in turns with cuDNN (the eval shapes forward only) and
+    each shape's kernel / cuDNN ratio. Returns (max abs err, the sums over
+    the training shapes, over the eval shapes, the shape count)."""
+    first, multi, stacked = member_shapes(torch)
+    print(f"  {len(first)} multi_predictor first convs {first}, "
+          f"{len(multi)} at its eval rows N = {sorted({s[0] for s in multi})}"
+          f" and {len(stacked)} stacked eval shapes (chunks of N = "
+          f"{sorted({s[0] for s in stacked})} at (n_blocks, filters) "
+          f"{STACKED_TRIALS})")
+    evals = multi + stacked
+    max_abs = kernel_vs_plain(torch, conv, first)
+    max_abs = max(max_abs, kernel_vs_plain(torch, conv, evals,
+                                           backward=False, acts=("elu",)))
+    print(f"  max abs err {max_abs:.3e}; device time per launch (kernel and "
+          f"cuDNN in turns; on {card})")
+    tsums, per = kernel_times(torch, conv, first)
+    esums, eper = kernel_times(torch, conv, evals, modes=("fwd",))
+    print_sums("multi_predictor first convs", len(first), tsums)
+    print_sums("eval shapes", len(evals), esums)
+    print("  kernel / cuDNN per shape: " + "; ".join(
+        f"{s} {m} {r['ms'] / r['library_ms']:.2f}x"
+        for p in (per, eper) for s, modes in p.items()
+        for m, r in modes.items()))
+    return max_abs, tsums, esums, len(first) + len(evals)
+
+
+@contextlib.contextmanager
+def stage_memory(torch):
+    """Peak device memory by stage of the runs inside the block: each of
+    the port's functions below, wrapped here, resets the peak at entry
+    and reads it at exit (none of them runs inside another). Yields
+    {stage: [bytes allocated at entry, peak bytes]}, each the largest over
+    the stage's calls; 'whole run' is added at exit."""
+    from s2s_ismr_tpu_torch.pipelines import tune
+    from s2s_ismr_tpu_torch.train import sweep
+    seams = ((tune, "load_bundles", "data"), (tune, "_nn_setup", "labels"),
+             (tune, "run_elr_branch", "ELR"),
+             (sweep, "train_fold", "NN training"),
+             (sweep, "predict", "winner eval"),
+             (tune, "predict", "winner eval"), (tune, "_nn_result", "scores"))
+    peaks, real = {}, [getattr(mod, name) for mod, name, _ in seams]
+
+    def staged(fn, stage):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            entry = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            p = peaks.setdefault(stage, [0, 0])
+            p[0] = max(p[0], entry)
+            p[1] = max(p[1], torch.cuda.max_memory_allocated())
+            return out
+        return call
+    for (mod, name, stage), fn in zip(seams, real):
+        setattr(mod, name, staged(fn, stage))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield peaks
+    finally:
+        for (mod, name, _), fn in zip(seams, real):
+            setattr(mod, name, fn)
+        peaks["whole run"] = [0, max([p[1] for p in peaks.values()]
+                                     + [torch.cuda.max_memory_allocated()])]
+
+
+def print_memory(name, peaks, card):
+    print(f"  {name}: peak device memory by stage, MiB (allocated at entry "
+          f"/ peak): " + "; ".join(f"{s} {a / 2**20:.1f} / {p / 2**20:.1f}"
+                                   for s, (a, p) in peaks.items())
+          + f" on {card}")
+
+
+def cuda_vs_cpu(torch, mdir, week, fold, x, want):
+    """Max abs difference between the fold's winner reloaded on the CPU
+    and run on the rows x, and `want`: the card's predictions of them."""
+    from s2s_ismr_tpu_torch.train import checkpoint
+    from s2s_ismr_tpu_torch.train.engine import predict
+    model, _ = checkpoint.load_winner(mdir, week, fold, device="cpu")
+    return float((predict(model, None, torch.as_tensor(x))
+                  - want.cpu()).abs().max())
+
+
+def multi_path(torch, conv, card, work):
+    """(b) of phase 12: the CLI's tune_IITM_full --predictor
+    multi_predictor at its full grid (2 folds, 1 epoch), with peak device
+    memory by stage; the outputs tree, the manifest's input shape, test
+    RPSS finite on land, launches exact per trial, the winners reloaded
+    from disk bit-equal to the sweep's predictions, and a winner forward
+    on the CPU within 1e-5 of the card's. Returns the launches."""
+    from s2s_ismr_tpu_torch.pipelines import tune
+    from s2s_ismr_tpu_torch.train import checkpoint
+    from s2s_ismr_tpu_torch.train.engine import predict
+    d = os.path.join(work, "multi")
+    with stage_memory(torch) as mem:
+        out, seconds, launches = cli_run(
+            torch, conv, IITM_ARGV + ["--predictor", "multi_predictor",
+                                      "--out", d])
+    cfg, wk = out.config, out.config.week
+    n = check_tree(d, [out], "tuned")
+    _, (mdir,) = out_dirs(d, cfg)
+    bundle = tune.load_bundles(cfg)[cfg.models[0]]
+    with open(os.path.join(mdir, f"winners_{wk}.json")) as fh:
+        shapes = {tuple(e["input_shape"]) for e in json.load(fh)}
+    want = (1,) + bundle.shape_yx + (bundle.n_m,)
+    check(shapes == {want}, f"manifest input shapes {shapes}, want {want}")
+    means = check_rpss(d, out, bundle.valid_pixels(),
+                       {"ELR": out.elr.rpss_test, "unet": out.nn.rpss_test})
+    expected, terms = expected_launches(torch, out)
+    check(launches == expected, f"multi_predictor: launches {launches}, "
+          f"expected {expected} ({terms})")
+    x = bundle.fillna(0.0).predictor_images(cfg.predictor)
+    dev = out.nn.predictions.device
+    xd = torch.as_tensor(x, device=dev)
+    diffs = []
+    for f in range(out.nn.masks.n_folds):
+        model, _ = checkpoint.load_winner(mdir, wk, f, device=dev)
+        check(torch.equal(predict(model, None, xd), out.nn.predictions[f]),
+              f"fold {f}: the reloaded winner's predictions differ from "
+              f"the sweep's")
+        diffs.append(cuda_vs_cpu(torch, mdir, wk, f, x[:64],
+                                 out.nn.predictions[f, :64]))
+    check(max(diffs) <= 1e-5, f"cuda vs CPU winner forward differs by "
+          f"{max(diffs):.3e} > 1e-5")
+    print(f"  (b) multi_predictor: {n} files; manifest input shape {want}; "
+          f"ELR / U-Net test RPSS on land per fold {means['ELR']} / "
+          f"{means['unet']}; launches {launches} = expected ({terms}); "
+          f"winners reloaded bit-equal; cuda vs CPU on the first 64 rows "
+          f"max abs {max(diffs):.3e}; wall {seconds:.2f} s, "
+          f"{out.nn.train_steps} lane steps on {card}")
+    print_memory("multi_predictor", mem, card)
+    return launches
+
+
+def stacked_path(torch, conv, card, work):
+    """(c) of phase 12: the CLI's tune_IITM_full --predictor stacked
+    --training-type train (the grid's first trial, one lane per fold),
+    then `load` on the same --out, each with its peak device memory by
+    stage; the outputs tree, the shapes on the tiled axis, the row chunks
+    per winner forward, launches exact, the load's predictions and RPSS
+    maps bit-equal to the train run's, and a CPU forward of the last 64
+    rows within 1e-5 of the card's. Returns the launches."""
+    from s2s_ismr_tpu_torch.pipelines import tune
+    from s2s_ismr_tpu_torch.train.engine import row_chunk
+    d = os.path.join(work, "stacked")
+    argv = IITM_ARGV + ["--predictor", "stacked", "--out", d]
+    runs, mems = {}, {}
+    for mode in ("train", "load"):
+        with stage_memory(torch) as mems[mode]:
+            runs[mode] = cli_run(torch, conv,
+                                 argv + ["--training-type", mode])
+    trained, loaded = runs["train"][0], runs["load"][0]
+    cfg, wk = trained.config, trained.config.week
+    n = check_tree(d, [trained], "trained")
+    bundle = tune.load_bundles(cfg)[cfg.models[0]]
+    rows, F = bundle.n_m * bundle.n_t, trained.nn.masks.n_folds
+    check(tuple(trained.nn.predictions.shape)
+          == (F, rows) + bundle.shape_yx + (3,)
+          and trained.nn.labels.shape == (F, rows) + bundle.shape_yx,
+          f"stacked predictions {tuple(trained.nn.predictions.shape)}, "
+          f"labels {trained.nn.labels.shape}")
+    chunk = row_chunk(torch.empty((1,) + bundle.shape_yx + (1,)))
+    chunks = -(-rows // chunk)
+    for mode, (out, seconds, launches) in runs.items():
+        expected, terms = expected_launches(torch, out, mode == "load")
+        check(launches == expected, f"stacked {mode}: launches {launches}, "
+              f"expected {expected} ({terms})")
+        print(f"  (c) stacked {mode}: launches {launches} = expected "
+              f"({terms}); wall {seconds:.2f} s")
+    check(torch.equal(loaded.nn.predictions, trained.nn.predictions),
+          "the stacked load's predictions differ from the train run's")
+    for split in ("rpss_train", "rpss_val", "rpss_test"):
+        check((getattr(loaded.nn, split).values.tobytes()
+               == getattr(trained.nn, split).values.tobytes()),
+              f"the stacked load's {split} differs from the train run's")
+    means = check_rpss(d, trained, bundle.valid_pixels())
+    x = bundle.fillna(0.0).stacked().predictor_images("stacked")[-64:]
+    _, (mdir,) = out_dirs(d, cfg)
+    diff = max(cuda_vs_cpu(torch, mdir, wk, f, x,
+                           trained.nn.predictions[f, -64:])
+               for f in range(F))
+    check(diff <= 1e-5, f"stacked cuda vs CPU forward differs by "
+          f"{diff:.3e} > 1e-5")
+    print(f"  (c) stacked: {n} files; predictions and labels on the tiled "
+          f"axis of {rows} rows; {chunks} row chunks of {chunk} per winner "
+          f"forward (the last {rows - (chunks - 1) * chunk} rows); the load "
+          f"bit-equal to the train run; U-Net test RPSS on land per fold "
+          f"{means['unet']}; cuda vs CPU on the last 64 rows max abs "
+          f"{diff:.3e}; {trained.nn.train_steps} steps on {card}")
+    for mode, mem in mems.items():
+        print_memory(f"stacked {mode}", mem, card)
+    return sum(r[2] for r in runs.values())
+
+
+def weeks_path(torch, conv, card, work):
+    """(e) of phase 12: the CLI's `suite` of WEEK_CONFIGS x WEEKS (fast
+    grids, 2 folds, 1 epoch), cuDNN deterministic: each (config, week)'s
+    outputs tree file by file, the week's leads (tune_2MME's custom leads
+    revert), test RPSS finite on land, launches exact; the same command
+    with --resume runs nothing; a wk1 `load` on the tree is bit-equal to
+    the suite's wk1 run; wk1 winners copied under the wk2 name are
+    refused; rpss_records reads rows of both weeks. Returns the
+    launches."""
+    import shutil
+
+    import numpy as np
+    from s2s_ismr_tpu_torch import analysis
+    from s2s_ismr_tpu_torch.pipelines import tune
+    from s2s_ismr_tpu_torch.pipelines.configs import LEAD_MAPPING
+    d = os.path.join(work, "weeks")
+    argv = (["suite", "--configs", ",".join(WEEK_CONFIGS), "--week",
+             ",".join(WEEKS), "--out", d] + WEEK_FLAGS)
+    rc, per, summary, err = run_suite(torch, conv, argv)
+    names = sorted(f"{c}[{w}]" for c in WEEK_CONFIGS for w in WEEKS)
+    check(rc == 0 and sorted(per) == names == sorted(summary["configs"])
+          and not any("error" in r for r in summary["configs"].values()),
+          f"run.main({argv}) returned {rc}: {err[-2000:]}")
+    n = check_tree(d, [p[0] for p in per.values()], "tuned",
+                   extra=[os.path.join(d, "suite_summary.json")])
+    launches = 0
+    for name, (out, seconds, n_launch, _) in per.items():
+        cfg = out.config
+        leads = [cfg.lead(m) for m in cfg.models]
+        check(cfg.custom_lead is None and cfg.custom_leads is None
+              and set(leads) == {LEAD_MAPPING[cfg.week]},
+              f"{name}: leads {leads}")
+        ys = [b.y for b in tune.load_bundles(cfg).values()]
+        land = ~np.isnan(np.mean(ys, 0)).any(0)
+        means = check_rpss(d, out, land, {"ELR": out.elr.rpss_test,
+                                          "unet": out.nn.rpss_test})
+        expected, terms = expected_launches(torch, out)
+        check(n_launch == expected, f"{name}: launches {n_launch}, expected "
+              f"{expected} ({terms})")
+        launches += n_launch
+        print(f"  (e) {name}: leads {leads}; ELR / U-Net test RPSS on land "
+              f"per fold {means['ELR']} / {means['unet']}; launches "
+              f"{n_launch} = expected; wall {seconds:.2f} s")
+    print(f"  (e) the weeks suite: exit 0, {len(per)} runs, {n} files as "
+          f"the JAX CLI writes them")
+
+    conv.LAUNCHES = 0
+    rc, again, resumed, err = run_suite(torch, conv, argv + ["--resume"])
+    check(rc == 0 and not again and conv.LAUNCHES == 0
+          and resumed["configs"] == summary["configs"],
+          f"--resume: exit {rc}, ran {sorted(again)}, launches "
+          f"{conv.LAUNCHES}: {err[-2000:]}")
+    print("  (e) --resume: exit 0, no run and no launch, the summary's "
+          "runs unchanged")
+
+    base = [WEEK_CONFIGS[0], "--training-type", "load"] + WEEK_FLAGS
+    loaded, _, n_load = cli_run(torch, conv,
+                                base + ["--week", "wk1", "--out", d])
+    expected, terms = expected_launches(torch, loaded, load=True)
+    check(n_load == expected and torch.equal(
+        loaded.nn.predictions,
+        per[f"{WEEK_CONFIGS[0]}[wk1]"][0].nn.predictions),
+        f"wk1 load: launches {n_load} (expected {expected}), or its "
+        f"predictions differ from the suite's wk1 run")
+    launches += n_load
+    cfg = loaded.config
+    copied = os.path.join(work, "weeks_copied")
+    src, dst = (os.path.join(root, "models", cfg.out_dir,
+                             f"{cfg.models[0]}_{cfg.obs}")
+                for root in (d, copied))
+    shutil.copytree(os.path.join(src, "wk1"), os.path.join(dst, "wk2"))
+    os.rename(os.path.join(dst, "wk2", "winners_wk1.json"),
+              os.path.join(dst, "wk2", "winners_wk2.json"))
+    try:
+        cli_run(torch, conv, base + ["--week", "wk2", "--out", copied])
+    except ValueError as e:
+        check("week" in str(e), f"the refusal does not name the week: {e}")
+        refusal = str(e)
+    else:
+        raise SmokeFailure("wk1 winners copied under wk2 were loaded")
+    print(f"  (e) wk1 load: bit-equal to the suite's wk1 run, launches "
+          f"{n_load} = expected; wk1 winners copied under wk2 refused: "
+          f"{refusal}")
+
+    runs = [{"period_dir": c.out_dir, "model": c.result_name, "obs": c.obs,
+             "arch": a, "week": c.week, "label": c.week}
+            for c in (p[0].config for p in per.values())
+            for a in ("ELR", "unet")]
+    table = analysis.rpss_records(runs, d)
+    rows = {w: table.subset(lead=w).values.size for w in WEEKS}
+    check(all(rows.values()) and np.isfinite(table.values).all(),
+          f"rpss_records over the weeks tree: rows {rows}")
+    print(f"  (e) rpss_records over the tree: rows per week {rows}")
+    return launches
+
+
+def members_weeks_path(torch, conv, card, work):
+    """Phase 12; returns (launches, max abs err, (a)'s sums over its
+    training shapes and over its eval shapes, (a)'s shape count)."""
+    from s2s_ismr_tpu_torch.train.engine import deterministic_cudnn
+    t0 = time.perf_counter()
+
+    def took(part):
+        print(f"  ({part}) took {time.perf_counter() - t0:.1f} s of phase 12")
+    max_abs, tsums, esums, n_shapes = member_kernels(torch, conv, card)
+    took("a")
+    with deterministic_cudnn():
+        launches = multi_path(torch, conv, card, work)
+        took("b")
+        launches += stacked_path(torch, conv, card, work)
+        took("c")
+        launches += weeks_path(torch, conv, card, work)
+        took("e")
+    return launches, max_abs, tsums, esums, n_shapes
+
+
 def write_expected(torch, conv, card, path):
     """The port's `suite --check` file from two runs of phase 11's suite
     on this card: the first run's means, the tolerance the larger of 1e-5
@@ -1910,12 +2304,12 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
-        print("[1/11] device")
+        print("[1/12] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/11] build")
+        print("[2/12] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -1929,12 +2323,12 @@ def main(argv=None):
               f"{conv.kernel_chunk()} differ from the wrapper's "
               f"{conv.TILES} / {conv._BK}")
         if args.write_expected:
-            print(f"[11/11] (b) only: the suite twice -> "
+            print(f"[11/12] (b) only: the suite twice -> "
                   f"{args.write_expected}")
             write_expected(torch, conv, card, args.write_expected)
             return 0
 
-        print("[3/11] kernel vs plain (TF32 off), batch 16")
+        print("[3/12] kernel vs plain (TF32 off), batch 16")
         shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  the cnn's shapes (act none) and the multi_predictor first "
@@ -1969,41 +2363,41 @@ def main(argv=None):
                     times[mode][key] = times[mode].get(key, 0.0) + v
         print(f"  max abs err {max_abs:.3e}")
 
-        print("[4/11] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[4/12] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
         with tempfile.TemporaryDirectory() as work:
             unet_root = os.path.join(work, "tune")
-            print("[5/11] main path: `python -m s2s_ismr_tpu_torch.run "
+            print("[5/12] main path: `python -m s2s_ismr_tpu_torch.run "
                   "tune_ECMWF_com --synthetic --fast` in-process on cuda")
             launches += pipeline_path(torch, conv, card, unet_root)
 
-            print("[6/11] the other run modes of tune_ECMWF_com (fast "
+            print("[6/12] the other run modes of tune_ECMWF_com (fast "
                   "variant) in-process on cuda")
             modes_launches, modes_abs = modes_path(torch, conv, card,
                                                    os.path.join(work, "modes"))
             launches += modes_launches
             max_abs = max(max_abs, modes_abs)
 
-            print("[7/11] ELR branch of the full tune_ECMWF_com and tune_2MME "
+            print("[7/12] ELR branch of the full tune_ECMWF_com and tune_2MME "
                   "(10 folds), cuda vs CPU")
             elr = elr_cuda_vs_cpu(torch)
 
-            print("[8/11] realtime path on cuda: the CLI's `realtime` on "
+            print("[8/12] realtime path on cuda: the CLI's `realtime` on "
                   "phase 5's winners, the cnn's of phase 6, and the "
                   "operational forecast on a fake cache")
             launches += realtime_path(
                 torch, conv, card, unet_root,
                 os.path.join(work, "modes", "cnn"), work)
 
-            print("[9/11] reporting and profiler traces on cuda: the CLI's "
+            print("[9/12] reporting and profiler traces on cuda: the CLI's "
                   "`accs`, REL/BSS/RES and CC/ACC against float64, RPSS "
                   "records, and a traced fast tune run")
             launches += reporting_path(torch, conv, card, unet_root, elr,
                                        work)
 
-            print("[10/11] batched lanes (the conv kernel's lane mode, "
+            print("[10/12] batched lanes (the conv kernel's lane mode, "
                   "lane_dispatch='vmap'), the one-card mesh and bf16 on cuda")
             t10 = time.perf_counter()
             lanes_n, lanes_abs, lane_times, lane_launches, idle = \
@@ -2012,17 +2406,36 @@ def main(argv=None):
             max_abs = max(max_abs, lanes_abs)
             print(f"  phase 10 wall {time.perf_counter() - t10:.2f} s")
 
-            print("[11/11] the eight configs' tuning grids at full width on "
-                  "cuda: the kernel at every grid conv shape, and the CLI's "
-                  "`suite --folds 2 --epochs 1 --check`")
+            # phase 12 runs inside phase 11, before its suite: after the
+            # suite's millions of launches torch.profiler loses device
+            # events, and phase 12 (a) times with it
+            print("[11/12] (a) the eight configs' tuning grids at full width "
+                  "on cuda: the kernel at every grid conv shape")
             t11 = time.perf_counter()
             grid_abs, grid_times, n_train, n_eval = grid_kernels(torch, conv,
                                                                  card)
             max_abs = max(max_abs, grid_abs)
-            print(f"  (a) took {time.perf_counter() - t11:.1f} s")
+            t11 = time.perf_counter() - t11
+            print(f"  (a) took {t11:.1f} s")
+
+            print("[12/12] IITM's 24 members at 64x64 on cuda: the kernel at "
+                  "the multi_predictor and stacked shapes, tune_IITM_full "
+                  "--predictor multi_predictor at its full grid, --predictor "
+                  "stacked train then load; and the weeks: `suite --week "
+                  "wk1,wk2`, --resume, a wk1 load and a week mismatch")
+            t12 = time.perf_counter()
+            (iitm_launches, iitm_abs, iitm_train, iitm_eval,
+             n_iitm) = members_weeks_path(torch, conv, card, work)
+            launches += iitm_launches
+            max_abs = max(max_abs, iitm_abs)
+            print(f"  phase 12 wall {time.perf_counter() - t12:.2f} s")
+
+            print("[11/12] (b) the CLI's `suite --folds 2 --epochs 1 --check` "
+                  "of the eight configs at full width on cuda")
+            t11b = time.perf_counter()
             suite_launches = suite_path(torch, conv, card, work)
             launches += suite_launches
-            print(f"  phase 11 wall {time.perf_counter() - t11:.2f} s")
+            print(f"  phase 11 wall {t11 + time.perf_counter() - t11b:.2f} s")
         check("jax" not in sys.modules, "jax was imported")
         jax_pkg = [m for m in sys.modules
                    if m == "s2s_ismr_tpu" or m.startswith("s2s_ismr_tpu.")]
@@ -2063,7 +2476,14 @@ def main(argv=None):
         **{f"grids_{prefix}{key}": grid_times[mode][key]
            for mode, prefix in (("fwd", ""), ("dx", "dx_"))
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        "suite_launches": suite_launches}]}))
+        "suite_launches": suite_launches,
+        "iitm_shapes": n_iitm,
+        **{f"iitm_{prefix}{key}": sums[mode][key]
+           for prefix, sums, mode in (("", iitm_eval, "fwd"),
+                                      ("first_", iitm_train, "fwd"),
+                                      ("first_dx_", iitm_train, "dx"))
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "iitm_launches": iitm_launches}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

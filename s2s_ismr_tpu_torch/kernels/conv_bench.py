@@ -99,22 +99,27 @@ def config_shapes(torch, cfg, device="cuda"):
     synthetic data: every kernel conv of every trial of cfg.tuning at the
     trial's batch size on the config's grid, and at the eval row counts,
     the val rows (each epoch's val forward) and all T (the winner
-    forward), each cut into engine.row_chunk chunks."""
+    forward), each cut into engine.row_chunk chunks. The multi_predictor
+    puts the members into the first conv's channels; the stacked predictor
+    makes them extra rows, so its splits and eval rows are the members
+    times the record's."""
     from s2s_ismr_tpu_torch.pipelines.tune import (_apply_pad, load_bundles,
                                                    resolve_batch_sizes)
     from s2s_ismr_tpu_torch.train import splits
     from s2s_ismr_tpu_torch.train.engine import row_chunk
     b = _apply_pad(cfg, load_bundles(cfg)[cfg.models[0]])
-    x = b.predictor_images(cfg.predictor)
+    if cfg.predictor == "stacked":
+        b = b.stacked()
+    x = b.predictor_images(cfg.predictor, shape_only=True)
     fm = splits.bootstrap_masks(b.years, cfg.n_bootstraps,
                                 frac_valid=cfg.nn_frac_valid,
                                 frac_test=cfg.nn_frac_test)
-    chunk = row_chunk(torch.empty((1,) + x.shape[1:]))
+    chunk = row_chunk(torch.empty((1,) + x[1:]))
     rows = []
-    for n in (int(fm.val.sum(1).max()), x.shape[0]):
+    for n in (int(fm.val.sum(1).max()), x[0]):
         rows += [min(chunk, n - i) for i in range(0, n, chunk)]
-    grid = resolve_batch_sizes(cfg.tuning, x.shape[0])
-    hw, c_in = x.shape[1:3], x.shape[3]
+    grid = resolve_batch_sizes(cfg.tuning, x[0])
+    hw, c_in = x[1:3], x[3]
     return (trial_shapes(torch, grid, hw, c_in, device=device),
             trial_shapes(torch, grid, hw, c_in, rows=rows, device=device))
 

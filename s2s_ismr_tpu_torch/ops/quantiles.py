@@ -3,7 +3,8 @@
 xarray's skipna linear-interpolation quantile as one sort along the pooled
 axis with invalid entries pushed to the tail, then a gather at the
 (possibly fractional) order statistic q*(n_valid-1). The float32 arithmetic
-is the JAX version's, op for op, so tercile labels come out bit-equal.
+is the JAX version's as XLA compiles it (the interpolation is one fused
+multiply-add), so tercile labels come out bit-equal.
 """
 
 from __future__ import annotations
@@ -37,7 +38,14 @@ def masked_quantile(values, valid, qs, axis=0):
     xq = xs.unsqueeze(0).expand((q.shape[0],) + xs.shape)
     v_lo = torch.gather(xq, 1, lo.unsqueeze(1)).squeeze(1)
     v_hi = torch.gather(xq, 1, hi.unsqueeze(1)).squeeze(1)
-    out = v_lo * (1.0 - frac) + v_hi * frac
+    # v_lo * (1 - frac) + v_hi * frac as XLA compiles it in the JAX
+    # package's jitted tercile fit: one fused multiply-add,
+    # fma(v_lo, 1 - frac, v_hi * frac), its product exact in float64. The
+    # rounding differs from two products by an ulp now and then, and a
+    # tiled record (the stacked predictor repeats each value per member)
+    # has values equal to its edges, whose labels then flip.
+    out = (v_lo.double() * (1.0 - frac).double()
+           + (v_hi * frac).double()).to(torch.float32)
     return torch.where(n > 0, out, torch.full_like(out, float("nan")))
 
 

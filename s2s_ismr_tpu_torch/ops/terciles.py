@@ -9,7 +9,9 @@ larger week, as pandas' nearest does); label = 0 if y < q33, 2 if y > q66,
 else 1, NaN where the edges are undefined.
 
 All 53 weeks are computed in one batched sort instead of the JAX version's
-`lax.map` over weeks.
+`lax.map` over weeks. The sort holds (53, T, pixels) values and their int64
+indices, so a long record is sorted a slice of pixels at a time (the
+pixels are independent; the edges are the same bits either way).
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ from ..timeutils import N_ISO_WEEKS
 from .quantiles import masked_quantile
 
 TERCILE_QS = (1.0 / 3.0, 2.0 / 3.0)
+# elements of one pass of the (53, T, pixels) sort: 2**27 keeps a pass near
+# 2.5 GB of device memory with the sort's indices. The 64x64 configs' T =
+# 437 sorts all 4,096 pixels in one pass; the stacked predictor's 24 x 437
+# rows take 17 passes of 241 pixels.
+SORT_ELEMENTS = 1 << 27
 
 
 def _weeks0(weeks, device):
@@ -46,8 +53,12 @@ def rolling_edges(y, weeks, pool_mask, window_matrix):
     sel = wm[:, weeks0] & pool[None, :]                   # (53, T)
     present = torch.zeros(N_ISO_WEEKS, dtype=torch.bool, device=dev)
     present[weeks0[pool]] = True
-    sel = sel.reshape(sel.shape + (1,) * (y.ndim - 1))
-    edges = masked_quantile(y.unsqueeze(0), sel, TERCILE_QS, axis=1)
+    flat = y.reshape(y.shape[0], -1)[None]                # (1, T, P)
+    step = max(1, SORT_ELEMENTS // (N_ISO_WEEKS * y.shape[0]))
+    edges = torch.cat([masked_quantile(flat[..., i:i + step], sel[..., None],
+                                       TERCILE_QS, axis=1)
+                       for i in range(0, flat.shape[-1], step)], dim=-1)
+    edges = edges.reshape(edges.shape[:2] + y.shape[1:])  # (2, 53, *S)
     return edges.movedim(0, 1), present                   # (53, 2, *S)
 
 
