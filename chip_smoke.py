@@ -105,7 +105,7 @@ line is printed:
      shapes named; the eval shapes (val rows and T in row chunks) forward
      only; the device times of the 134 shapes in turns with cuDNN, summed
      per grid family, and every shape where cuDNN wins; (b) `run.main(
-     ["suite", "--synthetic", "--folds", "2", "--epochs", "1", "--out",
+     ["suite", "--synthetic", "--folds", "1", "--epochs", "1", "--out",
      <dir>, "--check", <s2s_ismr_tpu_torch/expected/
      suite_rpss_h100_cut.json>])` in-process with cuDNN deterministic: all
      eight configs with every trial of their grids; exit code 0, every
@@ -139,10 +139,27 @@ line is printed:
      bit-equal to the suite's wk1 run; wk1 winners copied under wk2
      refused with a ValueError naming the week; rpss_records rows for
      both weeks;
+  13. (last: nothing is timed by torch.profiler after its millions of
+     launches; its rates are host-clock numbers) the sweep at the
+     reference's depth on cuda, TF32 off, cuDNN deterministic: (a)
+     run_pipeline of tune_ECMWF_com (synthetic 32x32, T = 349) on its fast
+     grid's 2 trials but at 10 folds, 100 epochs and the published
+     patience 15 (20 lanes, each stopping on patience): every lane's
+     epochs (at least one stopped before 100) and their histogram, launches
+     exact per lane's depth, RPSS finite on land, a `load` replay of the
+     written winners bit-equal, the shortest lane retrained on the CPU to
+     the same stop epoch with its best val loss within 1e-4 relative, the
+     winners, stop epochs and per-fold RPSS against s2s_ismr_tpu_torch/
+     expected/depth_rpss_h100.json, wall, lane steps/s and peak device
+     memory by stage; (b) the first 4 folds' sweep with
+     lane_dispatch='vmap': stop epochs equal to (a)'s lane by lane, val
+     losses within 1e-4 relative, the same winners, each bucket run to
+     its last lane's stop (batched epochs and steps printed), launches
+     exact;
 then checks that neither jax nor any module of the JAX package
 (s2s_ismr_tpu) was loaded; prints the kernels JSON line (launches summed
-over phases 4, 5, 6, 8, 9, 10, 11 and 12; times and bounds summed over the
-shapes of phase 3, the forward under ms / plain_ms / library_ms /
+over phases 4, 5, 6, 8, 9, 10, 11, 12 and 13; times and bounds summed over
+the shapes of phase 3, the forward under ms / plain_ms / library_ms /
 bound_ms / bound_3xtf32_ms, the dx mode under dx_*; phase 10's lane mode
 at L = 4 under lanes_* (lanes_serial_ms: L one-lane launches,
 lanes_library_ms: cuDNN grouped), at L = 20 under lanes20_*,
@@ -150,14 +167,22 @@ lanes_launches: the lane-mode launches of (c)'s vmap sweep, and
 both modes' idle shares; phase 11's sums over its training shapes under
 grids_*, its shape counts and suite_launches; phase 12's forward sums over
 its eval shapes under iitm_*, over the first convs under iitm_first_* and
-iitm_first_dx_*, its shape count and launches), the card line, then the
-result line {"ok": true, ...}.
+iitm_first_dx_*, its shape count and launches; phase 13's launches
+under depth_launches), the card line, then the result line {"ok": true,
+...}.
 
     python3 chip_smoke.py --write-expected PATH
 
 runs phases 1-2, then phase 11's suite twice (without --check), and
 writes the port's expectations file to PATH: the first run's means, the
 tolerance the larger of 1e-5 and ten times the two runs' largest drift.
+
+    python3 chip_smoke.py --write-depth PATH
+
+runs phases 1-2, then phase 13's (a) twice, and writes its expectations
+file to PATH: the first run's winners, stop epochs and per-fold RPSS
+(the two runs must agree on the first two), the tolerance the larger of
+1e-5 and ten times the two runs' largest RPSS drift.
 """
 
 from __future__ import annotations
@@ -1651,9 +1676,10 @@ def lanes_path(torch, conv, card, work):
     return launches, max_abs, times, lane_launches, idle
 
 
-# phase 11's suite: every config with its whole grid, cut to 2 folds and 1
-# epoch; the port's expectations file holds its RPSS means on the card
-SUITE_ARGV = ["suite", "--synthetic", "--folds", "2", "--epochs", "1"]
+# phase 11's suite: every config with its whole grid, cut to 1 fold and 1
+# epoch, so that phase 13's depth run fits the script's time; the port's
+# expectations file holds its RPSS means on the card
+SUITE_ARGV = ["suite", "--synthetic", "--folds", "1", "--epochs", "1"]
 
 
 def expected_path():
@@ -1770,7 +1796,7 @@ def run_suite(torch, conv, argv):
 
 def suite_path(torch, conv, card, work):
     """(b) of phase 11: the CLI's `suite` of all eight configs at the full
-    width of their grids (2 folds, 1 epoch) with --check against the
+    width of their grids (1 fold, 1 epoch) with --check against the
     port's expectations file; per config the outputs tree, ELR and U-Net
     test RPSS finite on land in every fold, the launches against the
     per-trial count, wall, NN lane steps/s and peak device memory. Returns
@@ -2218,7 +2244,7 @@ def write_expected(torch, conv, card, path):
             f"Expectations for `python -m s2s_ismr_tpu_torch.run "
             f"{' '.join(SUITE_ARGV)} --check <this file>` on the card: "
             f"per-config ELR / U-Net test-RPSS means of all eight configs "
-            f"with every trial of their grids, cut to 2 folds and 1 epoch. "
+            f"with every trial of their grids, cut to 1 fold and 1 epoch. "
             f"Written by `python3 chip_smoke.py --write-expected` on {card} "
             f"(nvidia-smi name, power limit), torch {torch.__version__}, "
             f"CUDA {torch.version.cuda}, TF32 off, cuDNN deterministic. Two "
@@ -2231,6 +2257,316 @@ def write_expected(torch, conv, card, path):
         "settings": runs[0]["settings"],
         "tolerance": tol,
         "configs": {n: {k: a[n][k] for k in keys} for n in sorted(a)}}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(doc, fh, indent=1)
+        fh.write("\n")
+    print(f"  wrote {path}: largest drift {drift!r}, tolerance {tol!r}")
+
+
+# phase 13: the sweep at the reference's depth. tune_ECMWF_com (synthetic
+# 32x32, T = 349) on its fast grid's 2 trials, but with the published 10
+# folds, 100 epochs and patience 15 (the fast variant caps patience at 5);
+# (b) batches the first DEPTH_VMAP_FOLDS folds
+DEPTH = "tune_ECMWF_com"
+DEPTH_VMAP_FOLDS = 4
+DEPTH_SEED = 42          # run_unet_sweep's default base_seed
+DEPTH_RTOL = 1e-4        # val losses: card vs CPU, 'vmap' vs serial
+
+
+def depth_config():
+    from dataclasses import replace
+    from s2s_ismr_tpu_torch.pipelines import get_config
+    fast = get_config(DEPTH).fast_variant(n_bootstraps=10, epochs=100)
+    return replace(fast, tuning=replace(fast.tuning, patience=15))
+
+
+def depth_fingerprint(cfg):
+    """What phase 13's numbers depend on besides the card: the run's
+    settings fingerprint (tune.settings_fingerprint, the winners
+    manifest's), the config, its epochs, grid and patience."""
+    from s2s_ismr_tpu_torch.pipelines.tune import settings_fingerprint
+    from s2s_ismr_tpu_torch.train.sweep import enumerate_trials
+    fp = {**settings_fingerprint(cfg, "synthetic", 0, None),
+          "config": cfg.name, "epochs": cfg.epochs,
+          "patience": cfg.tuning.patience,
+          "trials": [t.hparams() for t in enumerate_trials(cfg.tuning)]}
+    return json.loads(json.dumps(fp))        # tuples as JSON lists
+
+
+def depth_expected_path():
+    """The port's phase 13 expectations file, shipped with the package."""
+    import s2s_ismr_tpu_torch
+    return os.path.join(os.path.dirname(s2s_ismr_tpu_torch.__file__),
+                        "expected", "depth_rpss_h100.json")
+
+
+def depth_run(torch, conv, root):
+    """run_pipeline of depth_config() on cuda into root, cuDNN
+    deterministic, the launch count set to 0 just before and read just
+    after, peak device memory by stage; the sweep's arguments kept.
+    Returns (TuneOutputs, wall s, launches, peaks, (args, kwargs) of the
+    run_unet_sweep call)."""
+    from s2s_ismr_tpu_torch.pipelines import tune
+    from s2s_ismr_tpu_torch.train.engine import deterministic_cudnn
+    calls, real = [], tune.run_unet_sweep
+
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    tune.run_unet_sweep = recording
+    try:
+        with deterministic_cudnn(), stage_memory(torch) as peaks:
+            conv.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tune.run_pipeline(depth_config(), out_root=root,
+                                    log=lambda s: None, device="cuda")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = conv.LAUNCHES
+    finally:
+        tune.run_unet_sweep = real
+    return out, seconds, launches, peaks, calls[0]
+
+
+def depth_means(root, out):
+    """Per-fold U-Net test RPSS means on land of the depth run `out`
+    written under root (check_rpss: finite on land, the netcdf equal to
+    the run's map)."""
+    from s2s_ismr_tpu_torch.pipelines import tune
+    cfg = out.config
+    land = tune.load_bundles(cfg)[cfg.models[0]].valid_pixels()
+    return check_rpss(root, out, land)["unet"]
+
+
+def depth_summary(out, rpss_means):
+    """The numbers phase 13 holds to its expectations file: per fold the
+    winner's trial index, every lane's stop epoch and the U-Net test RPSS
+    mean on land."""
+    sw = out.nn.sweeps[out.config.models[0]]
+    return {"fingerprint": depth_fingerprint(out.config),
+            "winners": [t.index for t in sw.best_trial],
+            "stop_epochs": sw.epochs_table.tolist(),
+            "rpss_test": [float(v) for v in rpss_means]}
+
+
+def check_depth(got, want):
+    """Failures (strings; none = pass) of a depth_summary against the
+    expectations file's doc: the same fingerprint, winners and stop
+    epochs, and each fold's RPSS mean within the file's tolerance."""
+    failures = []
+    if got["fingerprint"] != want["fingerprint"]:
+        failures.append(f"settings {got['fingerprint']} differ from the "
+                        f"file's {want['fingerprint']}")
+    for key in ("winners", "stop_epochs"):
+        if got[key] != want[key]:
+            failures.append(f"{key} {got[key]} differ from the file's "
+                            f"{want[key]}")
+    tol = float(want["tolerance"])
+    drift = [abs(a - b) for a, b in zip(got["rpss_test"], want["rpss_test"])]
+    if len(drift) != len(want["rpss_test"]) or not all(d <= tol
+                                                       for d in drift):
+        failures.append(f"rpss_test {got['rpss_test']} vs the file's "
+                        f"{want['rpss_test']}: drift {drift} > {tol!r}")
+    return failures
+
+
+def stop_histogram(epochs):
+    """'epochs: lanes' of an epochs table, in order of epochs."""
+    import numpy as np
+    vals, counts = np.unique(np.asarray(epochs), return_counts=True)
+    return ", ".join(f"{v}: {c}" for v, c in zip(vals.tolist(),
+                                                 counts.tolist()))
+
+
+def cpu_lane(torch, call, f, t):
+    """Lane (fold f, trial t) of the sweep `call` (its run_unet_sweep
+    arguments) retrained on the CPU as the sweep builds it: the lane
+    generator's init and batch orders, train_fold with the sweep's
+    settings. Returns (best val loss, epochs run)."""
+    from s2s_ismr_tpu_torch.models import UNet, UNetConfig
+    from s2s_ismr_tpu_torch.train import sweep
+    from s2s_ismr_tpu_torch.train.engine import train_fold
+    (x, y, tm, vm, grid), kw = call
+    settings = sweep._settings(kw["epochs"], t.batch_size, grid.patience, vm,
+                               True, kw["output"])
+    gen = sweep.lane_generator(DEPTH_SEED, f, t.index)
+    model = UNet(UNetConfig(filters=t.filters, n_blocks=t.n_blocks,
+                            ct_kernel=t.ct_kernel, output=kw["output"]),
+                 x.shape[-1], generator=gen, device="cpu")
+    _, vloss, hist = train_fold(
+        model, torch.as_tensor(x), y[f].cpu(), tm[f], vm[f], t.lr, gen,
+        settings, dropout_generator=sweep.lane_generator(
+            DEPTH_SEED, f, t.index, "cpu", stream=1))
+    return float(vloss), int(torch.isfinite(hist).sum())
+
+
+def depth_path(torch, conv, card, work):
+    """Phase 13: (a) run_pipeline of depth_config() on cuda (20 lanes, each
+    stopping on patience 15 or at 100 epochs): launches exact, RPSS finite
+    on land, a `load` replay bit-equal, one lane rerun on the CPU, the
+    numbers against depth_rpss_h100.json; (b) the first DEPTH_VMAP_FOLDS
+    folds' sweep with lane_dispatch='vmap' against (a) lane by lane.
+    Returns the launches of both."""
+    import numpy as np
+    from s2s_ismr_tpu_torch.pipelines import tune
+    from s2s_ismr_tpu_torch.train.engine import deterministic_cudnn
+    from s2s_ismr_tpu_torch.train.sweep import enumerate_trials, run_unet_sweep
+
+    t0 = time.perf_counter()
+    root = os.path.join(work, "depth")
+    out, seconds, launches, peaks, call = depth_run(torch, conv, root)
+    cfg = out.config
+    sw = out.nn.sweeps[cfg.models[0]]
+    F, R = sw.epochs_table.shape
+    ep = sw.epochs_table
+    check(F == cfg.n_bootstraps and R == 2,
+          f"depth run: {F} folds x {R} trials")
+    check((ep >= cfg.tuning.patience + 1).all() and (ep <= cfg.epochs).all()
+          and (ep < cfg.epochs).any(),
+          f"epochs run per lane {ep.tolist()}: no lane stopped early")
+    expected, terms = expected_launches(torch, out)
+    check(launches == expected,
+          f"depth run: launches {launches}, expected {expected} ({terms})")
+    means = depth_means(root, out)
+    with open(out.paths["profile"]) as fh:
+        stages = json.load(fh)["stages_s"]
+    print(f"  (a) run_pipeline, {F} folds x {R} trials, up to {cfg.epochs} "
+          f"epochs, patience {cfg.tuning.patience}: wall {seconds:.2f} s "
+          f"(data {stages['data']} s, ELR {stages['elr']} s, NN "
+          f"{stages['nn']} s); {out.nn.train_steps} lane steps of "
+          f"{out.nn.epochs_run} lane epochs = "
+          f"{out.nn.train_steps / stages['nn']:.1f} lane steps/s in the NN "
+          f"stage on {card}")
+    print(f"  epochs run per lane (fold x trial) {ep.tolist()}; "
+          f"{int((ep < cfg.epochs).sum())} of {F * R} lanes stopped before "
+          f"epoch {cfg.epochs}; histogram (epochs: lanes) "
+          f"{stop_histogram(ep)}")
+    print(f"  winners per fold {[t.index for t in sw.best_trial]}; kernel "
+          f"launches {launches} = expected ({terms}); U-Net test RPSS on "
+          f"land per fold {means}")
+    print_memory("depth run", peaks, card)
+
+    conv.LAUNCHES = 0
+    with deterministic_cudnn():
+        load = tune.run_pipeline(cfg, out_root=root, log=lambda s: None,
+                                 device="cuda", training_type="load")
+    n_load = conv.LAUNCHES
+    want_load, load_terms = expected_launches(torch, load, load=True)
+    check(n_load == want_load, f"load: launches {n_load}, expected "
+          f"{want_load} ({load_terms})")
+    check(torch.equal(load.nn.predictions, out.nn.predictions),
+          "the load replay's predictions differ from the depth run's")
+    launches += n_load
+    print(f"  `load` replay of the written winners: predictions bit-equal, "
+          f"launches {n_load} = expected ({load_terms})")
+
+    trials = enumerate_trials(call[0][4])
+    f, r = np.unravel_index(np.argmin(ep), ep.shape)
+    t1 = time.perf_counter()
+    v_cpu, n_cpu = cpu_lane(torch, call, int(f), trials[r])
+    v_card = float(sw.val_loss_table[f, r])
+    rel = abs(v_cpu / v_card - 1)
+    print(f"  lane (fold {f}, trial {r}) retrained on the CPU in "
+          f"{time.perf_counter() - t1:.1f} s: {n_cpu} epochs (card "
+          f"{int(ep[f, r])}), best val loss {v_cpu!r} (card {v_card!r}, "
+          f"relative gap {rel:.2e})")
+    check(n_cpu == ep[f, r] and rel <= DEPTH_RTOL,
+          f"CPU lane: {n_cpu} epochs, val loss {v_cpu!r}; card "
+          f"{int(ep[f, r])}, {v_card!r}")
+
+    path = depth_expected_path()
+    check(os.path.exists(path), f"no {path}: write it with `python3 "
+          f"chip_smoke.py --write-depth PATH`")
+    with open(path) as fh:
+        want = json.load(fh)
+    failures = check_depth(depth_summary(out, means), want)
+    check(not failures, f"against {os.path.relpath(path)}: "
+          + "; ".join(failures))
+    print(f"  [check] ok against {os.path.relpath(path)} (winners, stop "
+          f"epochs; RPSS per fold within {want['tolerance']!r})")
+    print(f"  (a) took {time.perf_counter() - t0:.1f} s of phase 13")
+
+    (x, y, tm, vm, grid), kw = call
+    k = DEPTH_VMAP_FOLDS
+    n_conv = 4 * max(grid.n_blocks) + 2
+    conv.LAUNCHES = conv.LANE_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with deterministic_cudnn():
+        rv = run_unet_sweep(x, y[:k], tm[:k], vm[:k], grid,
+                            **{**kw, "lane_dispatch": "vmap"})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    bs, be = rv.timings["batched_steps"], rv.timings["batched_epochs"]
+    n_lane = conv.LANE_LAUNCHES
+    want_lane = bs * (2 * n_conv - 1) + be * n_conv
+    check(n_lane == want_lane and conv.LAUNCHES - n_lane == k * n_conv,
+          f"vmap: {n_lane} lane-mode launches (expected {want_lane}), "
+          f"{conv.LAUNCHES - n_lane} one-lane (expected {k * n_conv})")
+    launches += conv.LAUNCHES
+    check(np.array_equal(rv.epochs_table, ep[:k]),
+          f"vmap epochs per lane {rv.epochs_table.tolist()} differ from "
+          f"serial's {ep[:k].tolist()}")
+    check(be == int(ep[:k].max(0).sum()),
+          f"vmap ran {be} batched epochs; the buckets' last stops are "
+          f"{ep[:k].max(0).tolist()}")
+    gap = float(np.abs(rv.val_loss_table / sw.val_loss_table[:k] - 1).max())
+    check(gap <= DEPTH_RTOL, f"vmap val losses {rv.val_loss_table.tolist()} "
+          f"vs serial {sw.val_loss_table[:k].tolist()}: {gap:.2e}")
+    check([t.index for t in rv.best_trial] == [t.index for t in
+                                               sw.best_trial[:k]],
+          "vmap picks other winners than serial")
+    print(f"  (b) lane_dispatch='vmap' on the first {k} folds ({k} lanes a "
+          f"bucket): {bs} batched steps, {be} batched epochs (each bucket to "
+          f"its last lane's stop, {ep[:k].max(0).tolist()}), "
+          f"{rv.train_steps} lane steps in {secs:.2f} s = "
+          f"{rv.train_steps / secs:.1f} lane steps/s; stop epochs equal to "
+          f"serial's lane by lane, val losses within {gap:.2e} relative, "
+          f"the same winners; {n_lane} lane-mode launches = {bs} x "
+          f"{2 * n_conv - 1} + {be} x {n_conv}, {k * n_conv} one-lane on "
+          f"{card}")
+    print(f"  phase 13 wall {time.perf_counter() - t0:.2f} s")
+    return launches
+
+
+def write_depth(torch, conv, card, path):
+    """Phase 13's expectations file from two runs of its (a) on this card:
+    the first run's winners, stop epochs and RPSS per fold, which the two
+    runs must share; the tolerance the larger of 1e-5 and ten times their
+    largest RPSS drift."""
+    runs = []
+    with tempfile.TemporaryDirectory() as work:
+        for i in range(2):
+            root = os.path.join(work, str(i))
+            out, seconds, _, _, _ = depth_run(torch, conv, root)
+            runs.append(depth_summary(out, depth_means(root, out)))
+            print(f"  depth run {i + 1}: {seconds:.2f} s, epochs per lane "
+                  f"{runs[-1]['stop_epochs']}")
+    a, b = runs
+    check(a["winners"] == b["winners"] and a["stop_epochs"]
+          == b["stop_epochs"], f"two runs disagree: {a} / {b}")
+    drift = max(abs(u - v) for u, v in zip(a["rpss_test"], b["rpss_test"]))
+    tol = max(1e-5, 10 * drift)
+    doc = {
+        "_comment": (
+            f"Expectations for chip_smoke.py phase 13: run_pipeline of "
+            f"{DEPTH}'s fast grid (2 trials) at 10 folds, 100 epochs and "
+            f"patience 15, synthetic, on the card: per fold the winner's "
+            f"trial index and the U-Net test RPSS mean on land, per lane "
+            f"(fold x trial) its epochs run. Written by `python3 "
+            f"chip_smoke.py --write-depth` on {card} (nvidia-smi name, "
+            f"power limit), torch {torch.__version__}, CUDA "
+            f"{torch.version.cuda}, TF32 off, cuDNN deterministic. Two runs "
+            f"drifted by at most {drift!r} in RPSS; the tolerance is "
+            + ("1e-5 (ten times the drift is smaller)" if tol == 1e-5 else
+               "ten times that drift")
+            + "; winners and stop epochs must be equal. Valid only at "
+            f"these settings."),
+        "backend": torch.cuda.get_device_name(0),
+        "tolerance": tol, **a}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fh:
         json.dump(doc, fh, indent=1)
@@ -2292,6 +2628,9 @@ def main(argv=None):
     ap.add_argument("--write-expected", metavar="PATH", default=None,
                     help="only run phase 11's suite twice and write the "
                          "port's suite --check file to PATH")
+    ap.add_argument("--write-depth", metavar="PATH", default=None,
+                    help="only run phase 13's (a) twice and write its "
+                         "expectations file to PATH")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2303,13 +2642,14 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     try:
-        print("[1/12] device")
+        print("[1/13] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/12] build")
+        print("[2/13] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -2323,12 +2663,17 @@ def main(argv=None):
               f"{conv.kernel_chunk()} differ from the wrapper's "
               f"{conv.TILES} / {conv._BK}")
         if args.write_expected:
-            print(f"[11/12] (b) only: the suite twice -> "
+            print(f"[11/13] (b) only: the suite twice -> "
                   f"{args.write_expected}")
             write_expected(torch, conv, card, args.write_expected)
             return 0
+        if args.write_depth:
+            print(f"[13/13] (a) only: the depth run twice -> "
+                  f"{args.write_depth}")
+            write_depth(torch, conv, card, args.write_depth)
+            return 0
 
-        print("[3/12] kernel vs plain (TF32 off), batch 16")
+        print("[3/13] kernel vs plain (TF32 off), batch 16")
         shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  the cnn's shapes (act none) and the multi_predictor first "
@@ -2363,41 +2708,41 @@ def main(argv=None):
                     times[mode][key] = times[mode].get(key, 0.0) + v
         print(f"  max abs err {max_abs:.3e}")
 
-        print("[4/12] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[4/13] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
         with tempfile.TemporaryDirectory() as work:
             unet_root = os.path.join(work, "tune")
-            print("[5/12] main path: `python -m s2s_ismr_tpu_torch.run "
+            print("[5/13] main path: `python -m s2s_ismr_tpu_torch.run "
                   "tune_ECMWF_com --synthetic --fast` in-process on cuda")
             launches += pipeline_path(torch, conv, card, unet_root)
 
-            print("[6/12] the other run modes of tune_ECMWF_com (fast "
+            print("[6/13] the other run modes of tune_ECMWF_com (fast "
                   "variant) in-process on cuda")
             modes_launches, modes_abs = modes_path(torch, conv, card,
                                                    os.path.join(work, "modes"))
             launches += modes_launches
             max_abs = max(max_abs, modes_abs)
 
-            print("[7/12] ELR branch of the full tune_ECMWF_com and tune_2MME "
+            print("[7/13] ELR branch of the full tune_ECMWF_com and tune_2MME "
                   "(10 folds), cuda vs CPU")
             elr = elr_cuda_vs_cpu(torch)
 
-            print("[8/12] realtime path on cuda: the CLI's `realtime` on "
+            print("[8/13] realtime path on cuda: the CLI's `realtime` on "
                   "phase 5's winners, the cnn's of phase 6, and the "
                   "operational forecast on a fake cache")
             launches += realtime_path(
                 torch, conv, card, unet_root,
                 os.path.join(work, "modes", "cnn"), work)
 
-            print("[9/12] reporting and profiler traces on cuda: the CLI's "
+            print("[9/13] reporting and profiler traces on cuda: the CLI's "
                   "`accs`, REL/BSS/RES and CC/ACC against float64, RPSS "
                   "records, and a traced fast tune run")
             launches += reporting_path(torch, conv, card, unet_root, elr,
                                        work)
 
-            print("[10/12] batched lanes (the conv kernel's lane mode, "
+            print("[10/13] batched lanes (the conv kernel's lane mode, "
                   "lane_dispatch='vmap'), the one-card mesh and bf16 on cuda")
             t10 = time.perf_counter()
             lanes_n, lanes_abs, lane_times, lane_launches, idle = \
@@ -2409,7 +2754,7 @@ def main(argv=None):
             # phase 12 runs inside phase 11, before its suite: after the
             # suite's millions of launches torch.profiler loses device
             # events, and phase 12 (a) times with it
-            print("[11/12] (a) the eight configs' tuning grids at full width "
+            print("[11/13] (a) the eight configs' tuning grids at full width "
                   "on cuda: the kernel at every grid conv shape")
             t11 = time.perf_counter()
             grid_abs, grid_times, n_train, n_eval = grid_kernels(torch, conv,
@@ -2418,7 +2763,7 @@ def main(argv=None):
             t11 = time.perf_counter() - t11
             print(f"  (a) took {t11:.1f} s")
 
-            print("[12/12] IITM's 24 members at 64x64 on cuda: the kernel at "
+            print("[12/13] IITM's 24 members at 64x64 on cuda: the kernel at "
                   "the multi_predictor and stacked shapes, tune_IITM_full "
                   "--predictor multi_predictor at its full grid, --predictor "
                   "stacked train then load; and the weeks: `suite --week "
@@ -2430,12 +2775,19 @@ def main(argv=None):
             max_abs = max(max_abs, iitm_abs)
             print(f"  phase 12 wall {time.perf_counter() - t12:.2f} s")
 
-            print("[11/12] (b) the CLI's `suite --folds 2 --epochs 1 --check` "
+            print("[11/13] (b) the CLI's `suite --folds 1 --epochs 1 --check` "
                   "of the eight configs at full width on cuda")
             t11b = time.perf_counter()
             suite_launches = suite_path(torch, conv, card, work)
             launches += suite_launches
             print(f"  phase 11 wall {t11 + time.perf_counter() - t11b:.2f} s")
+
+            # last: after its millions of launches nothing is timed
+            print("[13/13] the sweep at the reference's depth on cuda: "
+                  "tune_ECMWF_com's fast grid at 10 folds, 100 epochs and "
+                  "patience 15, serial then 'vmap'")
+            depth_launches = depth_path(torch, conv, card, work)
+            launches += depth_launches
         check("jax" not in sys.modules, "jax was imported")
         jax_pkg = [m for m in sys.modules
                    if m == "s2s_ismr_tpu" or m.startswith("s2s_ismr_tpu.")]
@@ -2445,6 +2797,7 @@ def main(argv=None):
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     fwd, dx = times["fwd"], times["dx"]
     lanes = {}
     for n_lanes, tag in zip(LANES, ("lanes", "lanes20")):
@@ -2483,7 +2836,8 @@ def main(argv=None):
                                       ("first_", iitm_train, "fwd"),
                                       ("first_dx_", iitm_train, "dx"))
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        "iitm_launches": iitm_launches}]}))
+        "iitm_launches": iitm_launches,
+        "depth_launches": depth_launches}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
