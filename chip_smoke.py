@@ -445,10 +445,14 @@ def main_path(torch, conv, card):
     return launches, max_abs
 
 
+CLI_PROGRAMS = {}        # programs.STATS just before the last cli_run
+
+
 def cli_run(torch, conv, argv):
     """run.main(argv) in-process with the kernel's launch count set to 0
-    just before; returns (the run's TuneOutputs, wall s, launches)."""
-    from s2s_ismr_tpu_torch import run
+    (and the programs' counts noted in CLI_PROGRAMS) just before; returns
+    (the run's TuneOutputs, wall s, launches)."""
+    from s2s_ismr_tpu_torch import programs, run
     from s2s_ismr_tpu_torch.pipelines import tune
     outs = []
     real = tune.run_pipeline
@@ -458,6 +462,8 @@ def cli_run(torch, conv, argv):
         return outs[-1]
 
     tune.run_pipeline = recording
+    global CLI_PROGRAMS
+    CLI_PROGRAMS = dict(programs.STATS)
     try:
         conv.LAUNCHES = 0
         torch.cuda.synchronize()
@@ -589,6 +595,24 @@ def expected_launches(torch, out, load=False):
     return count, terms
 
 
+def check_programs(what, since, epochs, forwards):
+    """Every training epoch and eval forward since the programs' counts
+    were `since` (a copy of programs.STATS) ran as a replay of a memoized
+    program: `epochs` epoch replays (lane epochs, or batched epochs),
+    `forwards` forward replays, nothing uncaptured."""
+    from s2s_ismr_tpu_torch import programs
+    s = {k: v - since[k] for k, v in programs.STATS.items()}
+    check(s["uncaptured_cuda_runs"] == 0 and s["train_replays"] == epochs
+          and s["predict_replays"] == forwards,
+          f"{what}: programs {s}; expected {epochs} epoch replays, "
+          f"{forwards} forward replays, none uncaptured")
+    print(f"  {what}: {s['train_replays']} epoch replays = the epochs run, "
+          f"{s['predict_replays']} forward replays, 0 uncaptured; "
+          f"{s['captures']} captures in {s['capture_s']:.2f} s (builds "
+          f"with their warm-ups {s['build_s']:.2f} s), memo hits "
+          f"{s['hits']}, misses {s['misses']}")
+
+
 def pipeline_path(torch, conv, card, d):
     """The CLI's whole tune run in-process on cuda, its outputs under d
     (kept for the realtime phase); returns the kernel launches of that
@@ -622,6 +646,7 @@ def pipeline_path(torch, conv, card, d):
     expected, terms = expected_launches(torch, out)
     print(f"  kernel launches {launches}, expected {expected} ({terms})")
     check(launches == expected, "launch count does not match the steps")
+    check_programs("programs of the run", CLI_PROGRAMS, epochs, n_folds)
 
     # replay: each fold's winner from disk, the sweep's shapes (all T)
     x = torch.as_tensor(bundle.fillna(0.0).predictor_images("mean"),
@@ -1340,11 +1365,14 @@ def traced_run(torch, conv, card, work):
             records.append(rec)
 
     tune.trace = recording
+    warm = conv.WARMUP_LAUNCHES
     try:
         out, seconds, launches = cli_run(torch, conv, argv + [
             "--profile", p, "--out", o])
     finally:
         tune.trace = real
+    # a program built inside the traced window adds its warm-up's launches
+    warm = conv.WARMUP_LAUNCHES - warm
     check([r.path for r in records] == [os.path.join(p, "trace.json"),
                                         os.path.join(p, "nn", "trace.json")],
           f"traces written: {[r.path for r in records]}")
@@ -1365,9 +1393,9 @@ def traced_run(torch, conv, card, work):
               f"in {parse_s:.3f} s; {len(events)} events, {len(kernels)} "
               f"CUDA kernel events, {n_conv} of the conv kernel")
         check(kernels, f"the {stage} trace holds no CUDA kernel event")
-        want = expected if stage == "NN" else 0
+        want = expected + warm if stage == "NN" else 0
         check(n_conv == want, f"{stage} trace: {n_conv} conv kernel "
-              f"events, expected {want} ({terms})")
+              f"events, expected {want} ({terms}; {warm} warm-up)")
     stages = {}
     for name, run_out in (("untraced", plain), ("traced", out)):
         with open(run_out.paths["profile"]) as fh:
@@ -1375,7 +1403,8 @@ def traced_run(torch, conv, card, work):
     print(f"  (d) traced run: wall {seconds:.2f} s (untraced {plain_s:.2f} "
           f"s), stages {stages['traced']} (untraced {stages['untraced']}; "
           f"trace writing excluded) on {card}; conv launches {launches} = "
-          f"counted in the NN trace = expected ({terms})")
+          f"expected ({terms}); the NN trace's conv events = those + {warm} "
+          f"warm-up launches of programs built in the traced window")
     return launches + plain_n
 
 
@@ -1502,10 +1531,10 @@ def lane_kernel_times(torch, conv, shapes, card):
     return res
 
 
-def device_busy(torch, fn):
-    """(fn's result, wall s, device busy s) of one run of fn under
-    torch.profiler (CUDA activity only): busy is the sum of the device
-    events' durations (kernels, copies, fills)."""
+def device_events(torch, fn):
+    """(fn's result, wall s, device events) of one run of fn under
+    torch.profiler (CUDA activity only): the events are the device's
+    kernels, copies and fills."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1513,9 +1542,16 @@ def device_busy(torch, fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA"))
-    return out, wall, busy / 1e6
+    events = [e for e in prof.events()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return out, wall, events
+
+
+def device_busy(torch, fn):
+    """(fn's result, wall s, device busy s) of one run of fn under
+    torch.profiler: busy is the sum of the device events' durations."""
+    out, wall, events = device_events(torch, fn)
+    return out, wall, sum(e.time_range.elapsed_us() for e in events) / 1e6
 
 
 def lanes_path(torch, conv, card, work):
@@ -1674,6 +1710,307 @@ def lanes_path(torch, conv, card, work):
               f"of float32 ({tables['bfloat16'].ravel().tolist()})")
     took("e")
     return launches, max_abs, times, lane_launches, idle
+
+
+# phase 14: the engine's programs (each lane's epoch and each eval forward
+# a memoized CUDA graph) against the uncaptured seam
+PROG_CONFIG = "tune_ECMWF_com"
+PROG_EPOCHS = 6
+PROG_TURNS = 3
+PROG_DEVICE = "cuda"     # "cpu" rehearses the phase (not its device numbers)
+
+
+def program_data(torch, name, fast=True):
+    """(x (T, H, W, C), one-hot labels (F, T, H, W, 3), fold masks) of
+    config `name` on cuda (its fast variant's folds)."""
+    from s2s_ismr_tpu_torch.pipelines import get_config, tune
+    cfg = get_config(name)
+    cfg = cfg.fast_variant() if fast else cfg
+    bundles = tune.load_bundles(cfg)
+    _, _, first, fm, _, y_oh, _ = tune._nn_setup(cfg, bundles,
+                                                 lambda s: None, PROG_DEVICE)
+    x = torch.as_tensor(first.predictor_images("mean"), device=PROG_DEVICE)
+    return x, y_oh, fm
+
+
+def gen_states(gens):
+    return [None if g is None else g.get_state() for g in gens]
+
+
+def fold_lane(torch, data, make, f, lr, seed, settings, uncaptured):
+    """train_fold of fold f on the model make(generator) with lane seed
+    `seed`: (best, best vloss, hist, Adam count, generator states after)."""
+    from s2s_ismr_tpu_torch import programs
+    from s2s_ismr_tpu_torch.train.engine import train_fold
+    x, y, fm = data
+    g = torch.Generator().manual_seed(seed)
+    d = torch.Generator(device=PROG_DEVICE).manual_seed(seed + 1)
+    best, v, h = train_fold(make(g), x, y[f], fm.train[f], fm.val[f], lr, g,
+                            settings, dropout_generator=d,
+                            _uncaptured=uncaptured)
+    count = programs.last().lane.opt_state[0].clone()
+    return best, v, h, count, gen_states([g, d])
+
+
+def lanes_run(torch, data, make, lrs, seed, settings, uncaptured, drop):
+    """train_lanes of folds (0, 0, 1, 1) x lrs: (best list, best vlosses,
+    hist, Adam counts, generator states after, batched steps)."""
+    from s2s_ismr_tpu_torch import programs
+    from s2s_ismr_tpu_torch.train.engine import train_lanes
+    x, y, fm = data
+    fs = [0, 0, 1, 1]
+    gens = [torch.Generator().manual_seed(seed + i) for i in range(4)]
+    models = [make(g) for g in gens]
+    drops = ([torch.Generator(device=PROG_DEVICE).manual_seed(seed + 10 + i)
+              for i in range(4)] if drop else None)
+    res = train_lanes(models, x, y[fs], fm.train[fs], fm.val[fs], lrs, gens,
+                      settings, dropout_generators=drops,
+                      _uncaptured=uncaptured)
+    count = programs.last().opt_state[0].clone()
+    return (res.best, res.best_vloss, res.hist, count,
+            gen_states(gens + (drops or [])), res.batched_steps)
+
+
+def same_run(torch, a, b):
+    """The fields of two runs that differ (a run: best state or list of
+    them, best vloss, hist, Adam count, generator states, ...)."""
+    def states_equal(x, y):
+        if isinstance(x, list):
+            return len(x) == len(y) and all(states_equal(u, v)
+                                            for u, v in zip(x, y))
+        return list(x) == list(y) and all(torch.equal(x[k], y[k]) for k in x)
+
+    diff = []
+    if not states_equal(a[0], b[0]):
+        diff.append("best state")
+    if not torch.equal(a[1], b[1]):
+        diff.append("best val loss")
+    if not torch.equal(torch.nan_to_num(a[2], nan=-1.0),
+                       torch.nan_to_num(b[2], nan=-1.0)):
+        diff.append("history / stop epoch")
+    if not torch.equal(a[3], b[3]):
+        diff.append("Adam count")
+    if not all((s is None and t is None) or torch.equal(s, t)
+               for s, t in zip(a[4], b[4])):
+        diff.append("generator states")
+    if a[5:] != b[5:]:
+        diff.append("batched steps")
+    return diff
+
+
+def programs_bits(torch, conv, card):
+    """(a) of phase 14: graph against the uncaptured seam, bit for bit."""
+    from s2s_ismr_tpu_torch import programs
+    from s2s_ismr_tpu_torch.models import UNet, UNetConfig
+    from s2s_ismr_tpu_torch.models.mlp import MLP
+    from s2s_ismr_tpu_torch.pipelines import get_config
+    from s2s_ismr_tpu_torch.train.engine import TrainSettings
+
+    data = program_data(torch, PROG_CONFIG)
+    x = data[0]
+    vrows = int(data[2].val.sum(1).max())
+
+    def unet(rate=0.0, filters=2, n_blocks=3, ct=(2, 2)):
+        cfg = UNetConfig(filters=filters, n_blocks=n_blocks, ct_kernel=ct,
+                         dropout_rate=rate)
+        return lambda g: UNet(cfg, x.shape[-1], generator=g, device=PROG_DEVICE)
+
+    def st(epochs=PROG_EPOCHS, patience=15):
+        return TrainSettings(epochs=epochs, batch_size=BATCH,
+                             patience=patience, val_rows=vrows,
+                             early_exit=True)
+
+    def pair(name, run):
+        t0 = time.perf_counter()
+        graph, seam = run(False), run(True)
+        diff = same_run(torch, graph, seam)
+        check(not diff, f"(a) {name}: graph and seam differ in {diff}")
+        print(f"  (a) {name}: graph == seam bit for bit (best state, best "
+              f"val loss, history, stop epoch {int(torch.isfinite(graph[2]).sum(-1).max())}"
+              f", Adam count {graph[3].tolist()}, generator states); "
+              f"{time.perf_counter() - t0:.2f} s")
+        return graph
+
+    for rate in (0.0, 0.2):
+        pair(f"train_fold, fast U-Net (32x32, T = {x.shape[0]}, n_blocks "
+             f"3, filters 2, batch {BATCH}), {PROG_EPOCHS} epochs, dropout "
+             f"{rate}", lambda u: fold_lane(torch, data, unet(rate), 0, 1e-3,
+                                            7, st(), u))
+    pair("train_fold, the mlp (dropout 0.3)", lambda u: fold_lane(
+        torch, data, lambda g: MLP(tuple(x.shape[1:3]), x.shape[-1],
+                                   generator=g, device=PROG_DEVICE),
+        0, 1e-3, 8, st(), u))
+    for rate in (0.0, 0.2):
+        graph = pair(f"train_lanes, L = 4 (folds 0, 0, 1, 1; lr 1.0, 1e-3), "
+                     f"patience 2, dropout {rate}",
+                     lambda u: lanes_run(torch, data, unet(rate), [1.0, 1e-3,
+                                                                   1.0, 1e-3],
+                                         9, st(patience=2), u, rate > 0))
+        stops = torch.isfinite(graph[2]).sum(1).tolist()
+        check(len(set(stops)) > 1, f"(a) lanes all stopped at {stops}")
+        print(f"  lanes stopped at epochs {stops}")
+
+    # a lane on a program another lane used, against a fresh program
+    make = unet()
+    fold_lane(torch, data, make, 1, 1e-4, 11, st(), False)
+    reused = fold_lane(torch, data, make, 1, 1e-3, 12, st(), False)
+    misses = programs.STATS["misses"]
+    programs._program_memo.clear()
+    fresh = fold_lane(torch, data, make, 1, 1e-3, 12, st(), False)
+    check(programs.STATS["misses"] == misses + 1, "no fresh program")
+    diff = same_run(torch, reused, fresh)
+    check(not diff, f"(a) reused program vs fresh program: {diff}")
+    print("  (a) a lane on a program another lane (lr 1e-4) used == the "
+          "lane on a freshly captured program, bit for bit")
+
+    gefs = get_config("tune_GEFS_full")
+    gdata = program_data(torch, "tune_GEFS_full")
+    vrows = int(gdata[2].val.sum(1).max())
+    pair(f"train_fold, a _BLOCKS_GRID lane of tune_GEFS_full (n_blocks 5, "
+         f"filters 3, ct 5x5; {tuple(gdata[0].shape)}), 2 epochs",
+         lambda u: fold_lane(torch, gdata, lambda g: UNet(
+             UNetConfig(filters=3, n_blocks=5, ct_kernel=(5, 5)),
+             gdata[0].shape[-1], generator=g, device=PROG_DEVICE),
+             0, gefs.tuning.learning_rates[0], 13, st(2, 10), u))
+    idata = program_data(torch, "tune_IITM_full")
+    vrows = int(idata[2].val.sum(1).max())
+    pair(f"train_fold, a tune_IITM_full lane at 64x64 (n_blocks 5, filters "
+         f"3, ct 3x3; {tuple(idata[0].shape)}), 2 epochs",
+         lambda u: fold_lane(torch, idata, lambda g: UNet(
+             UNetConfig(filters=3, n_blocks=5, ct_kernel=(3, 3)),
+             idata[0].shape[-1], generator=g, device=PROG_DEVICE),
+             0, 1e-3, 14, st(2, 10), u))
+    return data
+
+
+def programs_trace(torch, conv, data):
+    """(b) of phase 14: the conv kernel's device events in one profiled
+    epoch (a replay) against the counter's delta."""
+    from s2s_ismr_tpu_torch.models import UNet, UNetConfig
+    from s2s_ismr_tpu_torch.train.engine import TrainSettings, train_fold
+    x, y, fm = data
+    st = TrainSettings(epochs=1, batch_size=BATCH, patience=15,
+                       val_rows=int(fm.val.sum(1).max()), early_exit=True)
+
+    def epoch():
+        g = torch.Generator().manual_seed(21)
+        return train_fold(UNet(UNetConfig(), x.shape[-1], generator=g,
+                               device=PROG_DEVICE), x, y[0], fm.train[0],
+                          fm.val[0], 1e-3, g, st)
+
+    epoch()                          # the program, built outside the trace
+    before, warm = conv.LAUNCHES, conv.WARMUP_LAUNCHES
+    _, wall, events = device_events(torch, epoch)
+    delta = conv.LAUNCHES - before
+    n_conv = sum("conv3x3_mma_kernel" in e.name for e in events)
+    check(conv.WARMUP_LAUNCHES == warm and n_conv == delta and delta > 0,
+          f"(b) profiled epoch: {n_conv} conv kernel events, counter delta "
+          f"{delta}, warm-up launches {conv.WARMUP_LAUNCHES - warm}")
+    print(f"  (b) one profiled epoch (a replay): {n_conv} conv kernel device "
+          f"events = the counter's delta {delta}; {len(events)} device "
+          f"events in {wall * 1e3:.1f} ms")
+
+
+def programs_turns(torch, conv, card, data, since):
+    """(c) of phase 14: graph against seam in turns on 2 lanes x
+    PROG_EPOCHS epochs; then one profiled run of each; the programs'
+    counts since `since` (programs.STATS at the phase's start). Returns
+    the numbers for the kernels line."""
+    from s2s_ismr_tpu_torch import programs
+    from s2s_ismr_tpu_torch.models import UNet, UNetConfig
+    from s2s_ismr_tpu_torch.train.engine import (TrainSettings, train_batches,
+                                                 train_fold)
+    x, y, fm = data
+    st = TrainSettings(epochs=PROG_EPOCHS, batch_size=BATCH, patience=15,
+                       val_rows=int(fm.val.sum(1).max()), early_exit=True)
+    steps = PROG_EPOCHS * sum(train_batches(int(fm.train[f].sum()), BATCH)
+                              for f in (0, 1))
+
+    def two_lanes(uncaptured):
+        out = []
+        for f in (0, 1):
+            g = torch.Generator().manual_seed(30 + f)
+            out.append(train_fold(
+                UNet(UNetConfig(), x.shape[-1], generator=g, device=PROG_DEVICE),
+                x, y[f], fm.train[f], fm.val[f], 1e-3, g, st,
+                _uncaptured=uncaptured))
+        return out
+
+    def timed_run(uncaptured):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = two_lanes(uncaptured)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    two_lanes(False)                 # the programs, built before the turns
+    rates = {"graph": [], "seam": []}
+    ref = None
+    for turn in range(PROG_TURNS):
+        for mode in (("graph", "seam") if turn % 2 == 0
+                     else ("seam", "graph")):
+            out, secs = timed_run(mode == "seam")
+            key = [(b, v, h) for b, v, h in out]
+            if ref is None:
+                ref = key
+            check(all(torch.equal(v, rv) for (_, v, _), (_, rv, _)
+                      in zip(key, ref)), f"(c) {mode} turn {turn}: val "
+                  f"losses differ from the first run's")
+            rates[mode].append((steps / secs, secs * 1e3 / (2 * PROG_EPOCHS)))
+    prof = {}
+    for mode in ("graph", "seam"):
+        _, wall, events = device_events(torch, lambda: two_lanes(
+            mode == "seam"))
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+        prof[mode] = (1 - busy / wall, len(events) / steps, busy * 1e3 / steps)
+    for mode in ("graph", "seam"):
+        r = rates[mode]
+        print(f"  (c) {mode}: lane steps/s "
+              f"{[round(v[0], 1) for v in r]}, host ms per lane epoch "
+              f"{[round(v[1], 2) for v in r]}; profiled: idle share "
+              f"{prof[mode][0]:.3f}, {prof[mode][1]:.1f} device ops and "
+              f"{prof[mode][2]:.3f} device ms per lane step ({steps} lane "
+              f"steps, 2 lanes x {PROG_EPOCHS} epochs) on {card}")
+    s = {k: v - since[k] for k, v in programs.STATS.items()}
+    caps = max(1, s["captures"])
+    pool = pool_bytes(torch)
+    print(f"  (c) phase 14 so far: {s['captures']} captures, "
+          f"{s['capture_s'] / caps:.3f} s per capture, "
+          f"{s['build_s'] / caps:.3f} s per build with its warm-up; memo hits "
+          f"{s['hits']}, misses {s['misses']}, {len(programs._program_memo)}"
+          f" entries; graph pools hold {pool / 2**20:.1f} MiB; warm-up "
+          f"launches so far {conv.WARMUP_LAUNCHES}")
+    return {"graph_steps_per_s": [v[0] for v in rates["graph"]],
+            "seam_steps_per_s": [v[0] for v in rates["seam"]],
+            "graph_idle_share": prof["graph"][0],
+            "seam_idle_share": prof["seam"][0],
+            "graph_ops_per_step": prof["graph"][1],
+            "seam_ops_per_step": prof["seam"][1],
+            "capture_s": s["capture_s"] / caps,
+            "build_s": s["build_s"] / caps, "pool_bytes": pool}
+
+
+def pool_bytes(torch):
+    """Device bytes the CUDA graphs' memory pools hold: the caching
+    allocator's segments outside its default pool."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def programs_path(torch, conv, card):
+    """Phase 14; returns the numbers of (c). TF32 off (main sets it),
+    cuDNN held deterministic."""
+    from s2s_ismr_tpu_torch import programs
+    from s2s_ismr_tpu_torch.train.engine import deterministic_cudnn
+    t0 = time.perf_counter()
+    since = dict(programs.STATS)
+    with deterministic_cudnn():
+        data = programs_bits(torch, conv, card)
+        print(f"  (a) took {time.perf_counter() - t0:.1f} s")
+        programs_trace(torch, conv, data)
+        nums = programs_turns(torch, conv, card, data, since)
+    print(f"  phase 14 wall {time.perf_counter() - t0:.2f} s")
+    return nums
 
 
 # phase 11's suite: every config with its whole grid, cut to 1 fold and 1
@@ -2415,8 +2752,10 @@ def depth_path(torch, conv, card, work):
     from s2s_ismr_tpu_torch.train.engine import deterministic_cudnn
     from s2s_ismr_tpu_torch.train.sweep import enumerate_trials, run_unet_sweep
 
+    from s2s_ismr_tpu_torch import programs
     t0 = time.perf_counter()
     root = os.path.join(work, "depth")
+    since = dict(programs.STATS)
     out, seconds, launches, peaks, call = depth_run(torch, conv, root)
     cfg = out.config
     sw = out.nn.sweeps[cfg.models[0]]
@@ -2430,6 +2769,7 @@ def depth_path(torch, conv, card, work):
     expected, terms = expected_launches(torch, out)
     check(launches == expected,
           f"depth run: launches {launches}, expected {expected} ({terms})")
+    check_programs("(a) programs", since, out.nn.epochs_run, F)
     means = depth_means(root, out)
     with open(out.paths["profile"]) as fh:
         stages = json.load(fh)["stages_s"]
@@ -2493,6 +2833,7 @@ def depth_path(torch, conv, card, work):
     k = DEPTH_VMAP_FOLDS
     n_conv = 4 * max(grid.n_blocks) + 2
     conv.LAUNCHES = conv.LANE_LAUNCHES = 0
+    since = dict(programs.STATS)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     with deterministic_cudnn():
@@ -2507,6 +2848,7 @@ def depth_path(torch, conv, card, work):
           f"vmap: {n_lane} lane-mode launches (expected {want_lane}), "
           f"{conv.LAUNCHES - n_lane} one-lane (expected {k * n_conv})")
     launches += conv.LAUNCHES
+    check_programs("(b) programs", since, be, k)
     check(np.array_equal(rv.epochs_table, ep[:k]),
           f"vmap epochs per lane {rv.epochs_table.tolist()} differ from "
           f"serial's {ep[:k].tolist()}")
@@ -2644,12 +2986,12 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     try:
-        print("[1/13] device")
+        print("[1/14] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/13] build")
+        print("[2/14] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -2663,17 +3005,17 @@ def main(argv=None):
               f"{conv.kernel_chunk()} differ from the wrapper's "
               f"{conv.TILES} / {conv._BK}")
         if args.write_expected:
-            print(f"[11/13] (b) only: the suite twice -> "
+            print(f"[11/14] (b) only: the suite twice -> "
                   f"{args.write_expected}")
             write_expected(torch, conv, card, args.write_expected)
             return 0
         if args.write_depth:
-            print(f"[13/13] (a) only: the depth run twice -> "
+            print(f"[13/14] (a) only: the depth run twice -> "
                   f"{args.write_depth}")
             write_depth(torch, conv, card, args.write_depth)
             return 0
 
-        print("[3/13] kernel vs plain (TF32 off), batch 16")
+        print("[3/14] kernel vs plain (TF32 off), batch 16")
         shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  the cnn's shapes (act none) and the multi_predictor first "
@@ -2708,41 +3050,41 @@ def main(argv=None):
                     times[mode][key] = times[mode].get(key, 0.0) + v
         print(f"  max abs err {max_abs:.3e}")
 
-        print("[4/13] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[4/14] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
         with tempfile.TemporaryDirectory() as work:
             unet_root = os.path.join(work, "tune")
-            print("[5/13] main path: `python -m s2s_ismr_tpu_torch.run "
+            print("[5/14] main path: `python -m s2s_ismr_tpu_torch.run "
                   "tune_ECMWF_com --synthetic --fast` in-process on cuda")
             launches += pipeline_path(torch, conv, card, unet_root)
 
-            print("[6/13] the other run modes of tune_ECMWF_com (fast "
+            print("[6/14] the other run modes of tune_ECMWF_com (fast "
                   "variant) in-process on cuda")
             modes_launches, modes_abs = modes_path(torch, conv, card,
                                                    os.path.join(work, "modes"))
             launches += modes_launches
             max_abs = max(max_abs, modes_abs)
 
-            print("[7/13] ELR branch of the full tune_ECMWF_com and tune_2MME "
+            print("[7/14] ELR branch of the full tune_ECMWF_com and tune_2MME "
                   "(10 folds), cuda vs CPU")
             elr = elr_cuda_vs_cpu(torch)
 
-            print("[8/13] realtime path on cuda: the CLI's `realtime` on "
+            print("[8/14] realtime path on cuda: the CLI's `realtime` on "
                   "phase 5's winners, the cnn's of phase 6, and the "
                   "operational forecast on a fake cache")
             launches += realtime_path(
                 torch, conv, card, unet_root,
                 os.path.join(work, "modes", "cnn"), work)
 
-            print("[9/13] reporting and profiler traces on cuda: the CLI's "
+            print("[9/14] reporting and profiler traces on cuda: the CLI's "
                   "`accs`, REL/BSS/RES and CC/ACC against float64, RPSS "
                   "records, and a traced fast tune run")
             launches += reporting_path(torch, conv, card, unet_root, elr,
                                        work)
 
-            print("[10/13] batched lanes (the conv kernel's lane mode, "
+            print("[10/14] batched lanes (the conv kernel's lane mode, "
                   "lane_dispatch='vmap'), the one-card mesh and bf16 on cuda")
             t10 = time.perf_counter()
             lanes_n, lanes_abs, lane_times, lane_launches, idle = \
@@ -2754,7 +3096,7 @@ def main(argv=None):
             # phase 12 runs inside phase 11, before its suite: after the
             # suite's millions of launches torch.profiler loses device
             # events, and phase 12 (a) times with it
-            print("[11/13] (a) the eight configs' tuning grids at full width "
+            print("[11/14] (a) the eight configs' tuning grids at full width "
                   "on cuda: the kernel at every grid conv shape")
             t11 = time.perf_counter()
             grid_abs, grid_times, n_train, n_eval = grid_kernels(torch, conv,
@@ -2763,7 +3105,7 @@ def main(argv=None):
             t11 = time.perf_counter() - t11
             print(f"  (a) took {t11:.1f} s")
 
-            print("[12/13] IITM's 24 members at 64x64 on cuda: the kernel at "
+            print("[12/14] IITM's 24 members at 64x64 on cuda: the kernel at "
                   "the multi_predictor and stacked shapes, tune_IITM_full "
                   "--predictor multi_predictor at its full grid, --predictor "
                   "stacked train then load; and the weeks: `suite --week "
@@ -2775,7 +3117,13 @@ def main(argv=None):
             max_abs = max(max_abs, iitm_abs)
             print(f"  phase 12 wall {time.perf_counter() - t12:.2f} s")
 
-            print("[11/13] (b) the CLI's `suite --folds 1 --epochs 1 --check` "
+            # phase 14 times with torch.profiler: before the suite too
+            print("[14/14] the engine's programs: each lane's epoch and each "
+                  "eval forward a memoized CUDA graph, against the "
+                  "uncaptured seam")
+            prog_nums = programs_path(torch, conv, card)
+
+            print("[11/14] (b) the CLI's `suite --folds 1 --epochs 1 --check` "
                   "of the eight configs at full width on cuda")
             t11b = time.perf_counter()
             suite_launches = suite_path(torch, conv, card, work)
@@ -2783,7 +3131,7 @@ def main(argv=None):
             print(f"  phase 11 wall {t11 + time.perf_counter() - t11b:.2f} s")
 
             # last: after its millions of launches nothing is timed
-            print("[13/13] the sweep at the reference's depth on cuda: "
+            print("[13/14] the sweep at the reference's depth on cuda: "
                   "tune_ECMWF_com's fast grid at 10 folds, 100 epochs and "
                   "patience 15, serial then 'vmap'")
             depth_launches = depth_path(torch, conv, card, work)
@@ -2798,6 +3146,16 @@ def main(argv=None):
         return 1
 
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
+    from s2s_ismr_tpu_torch import programs
+    memo = {"captures": programs.STATS["captures"],
+            "capture_s": programs.STATS["capture_s"],
+            "build_s": programs.STATS["build_s"],
+            "epoch_replays": programs.STATS["train_replays"],
+            "forward_replays": programs.STATS["predict_replays"],
+            "warmup_launches": conv.WARMUP_LAUNCHES,
+            "memo_entries": len(programs._program_memo),
+            "pool_bytes": pool_bytes(torch),
+            **{f"programs_{k}": v for k, v in prog_nums.items()}}
     fwd, dx = times["fwd"], times["dx"]
     lanes = {}
     for n_lanes, tag in zip(LANES, ("lanes", "lanes20")):
@@ -2837,7 +3195,7 @@ def main(argv=None):
                                       ("first_dx_", iitm_train, "dx"))
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "iitm_launches": iitm_launches,
-        "depth_launches": depth_launches}]}))
+        "depth_launches": depth_launches, **memo}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

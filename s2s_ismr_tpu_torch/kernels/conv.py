@@ -37,6 +37,7 @@ counts kernel launches (a dx launch counts one, a lane-mode launch one);
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -48,7 +49,10 @@ from . import _build
 
 LAUNCHES = 0
 LANE_LAUNCHES = 0
+WARMUP_LAUNCHES = 0
 _COUNT = threading.Lock()   # lanes of a mesh launch from several threads
+_TALLIES = {}               # stream handle -> lane counts of its launches,
+# while a program warms up or captures on that stream
 MAX_CHANNELS = 384
 MAX_LANES = 65535           # the grid's z extent
 _MAX_SIDE = 16384
@@ -208,13 +212,51 @@ def _lane_stride(t, ndim):
     return 0 if t is None or t.ndim == ndim else t.numel() // t.shape[0]
 
 
-def _count(lanes):
-    """One more launch in the counters (under a lock: the lanes of a mesh
-    launch from a host thread per card)."""
+def _count(lanes, stream=None):
+    """One more launch on `stream` (a stream handle): in the tally of a
+    program warming up or capturing there, else in the counters (under a lock: the lanes of a
+    mesh launch from a host thread per card, and a backward's launches come
+    from autograd's device thread)."""
     global LAUNCHES, LANE_LAUNCHES
     with _COUNT:
+        tally = _TALLIES.get(stream)
+        if tally is not None:
+            tally.append(lanes)
+            return
         LAUNCHES += 1
         LANE_LAUNCHES += lanes > 1
+
+
+@contextlib.contextmanager
+def tally(stream):
+    """Inside the block the launches on `stream` (a torch.cuda.Stream) go
+    into the list this yields (each launch's lane count), not into
+    LAUNCHES."""
+    key = stream.cuda_stream
+    launches = []
+    with _COUNT:
+        _TALLIES[key] = launches
+    try:
+        yield launches
+    finally:
+        with _COUNT:
+            del _TALLIES[key]
+
+
+def add_warmup(n):
+    """n launches of a program's warm-up ran."""
+    global WARMUP_LAUNCHES
+    with _COUNT:
+        WARMUP_LAUNCHES += n
+
+
+def replayed(launches, lane_launches):
+    """One replay of a graph that captured `launches` launches, of which
+    `lane_launches` ran more than one lane."""
+    global LAUNCHES, LANE_LAUNCHES
+    with _COUNT:
+        LAUNCHES += launches
+        LANE_LAUNCHES += lane_launches
 
 
 def _run(a, act_out, w, b, y, gp, dims, dx_mode, elu, tile, lanes=1):
@@ -235,7 +277,7 @@ def _run(a, act_out, w, b, y, gp, dims, dx_mode, elu, tile, lanes=1):
             ptr(a), ptr(act_out), ptr(w), ptr(b), ptr(y), ptr(gp),
             n, h, wd, cin, cout, int(dx_mode), int(elu), tile, lanes,
             *strides, stream)
-    _count(lanes)
+    _count(lanes, stream)
     if rc != 0:
         msg = lib.s2s_cuda_error_string(rc).decode()
         raise RuntimeError(f"conv3x3 kernel launch failed: {msg} ({rc})")

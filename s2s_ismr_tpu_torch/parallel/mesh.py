@@ -16,7 +16,10 @@ parallelism with no communication in the hot loop, as in JAX:
     value's tree) in place of JAX's sharded arrays;
   * `shard_map_lanes` runs each device's block of lanes in a host thread
     of its own (the kernels release the GIL while the card works), and
-    gathers the lane-major outputs on the mesh's first device;
+    gathers the lane-major outputs on the mesh's first device. Each device
+    trains through programs of its own (the device is part of a program's
+    key); they capture in `thread_local` mode, so the other devices'
+    threads keep allocating while one captures (`programs`);
   * the cross-lane reductions (`pmean_over_lanes`, `argmin_over_lanes`)
     copy each device's part to the first device and reduce there.
 

@@ -15,10 +15,22 @@ state (its step count included) are kept with `torch.where` on the device,
 so the loop never waits on the host inside an epoch. The one host read per
 epoch is `stopped`, when `early_exit` is on.
 
-The JAX `lax.scan` loops are Python loops here. Each epoch runs only the
-batches that hold a training sample: the train-first partition puts every
-all-padding batch at the end, and those are no-ops under the gate above,
-so skipping them changes no result.
+A lane's epoch is one program (`programs.Program`), JAX's jitted
+`epoch_step` (its minibatch scan and the val / best-epoch update): its
+body is written once over the program's static buffers. On a CUDA device
+the body is captured once into a CUDA graph and each epoch is a replay; on
+the CPU the body is called directly. The programs live in the process's
+memo (`programs`), keyed by the model's structure, the shapes and the
+statics, so every lane, fold and config of the same shapes reuses one:
+data, masks, learning rate, batch orders and initial weights are copied
+into the program's buffers before a lane runs, and its best state copied
+out after. The epoch loop around the program stays on the host, with its
+one read per epoch (`stopped`, under `early_exit`), as JAX's early-exit
+`while_loop` reads its condition. Each epoch runs only the batches that
+hold a training sample: the train-first partition puts every all-padding
+batch at the end, and those are no-ops under the gate above, so skipping
+them changes no result. The private keyword `_uncaptured` runs the same
+body without capture on the card: a test seam to compare against.
 
 Parameters and BN buffers are re-seated as views of one flat vector each,
 so the Adam update, the gate and the best-epoch copy are a few whole-vector
@@ -40,18 +52,26 @@ runs all lanes' batches (each lane its own batch order and dropout masks,
 drawn outside the vmap from its own generators in its serial order), and
 Adam, the gate, the best-epoch copy and early stopping are the same
 `torch.where` logic over the lane axis. Each lane computes what its own
-`train_fold` computes.
+`train_fold` computes. Its program is keyed also by the epoch's step count
+(the most real steps among the lanes still running) and, when the model
+draws dropout, by which lanes run: both change only when a lane stops.
+
+`predict`, the winner forward, is a program too (JAX's memoized
+`winner_forward`): keyed by the model's structure, the rows and their
+chunking.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 from dataclasses import dataclass
 
 import torch
 from torch import nn
 
+from .. import programs
 from ..kernels.conv import MAX_PIXELS
 from ..models.layers import Dropout, functional_batchnorm
 from .losses import categorical_crossentropy, masked_mse
@@ -162,7 +182,9 @@ def train_step(lane: LaneState, xb, yb, wb, lr, loss_impl,
     """One gated optimizer step on a batch; returns the loss (0-d tensor).
     A batch with zero total weight or a non-finite loss leaves parameters,
     BN statistics and Adam state (count included) as they were. The
-    model's dropout, if any, draws from `dropout_generator`."""
+    model's dropout, if any, draws from `dropout_generator`. lr is a float
+    or a 0-d tensor on the lane's device. The state is updated in place, so
+    it keeps its storage (a program's buffers)."""
     stats_before = lane.stats.clone()
     out = lane.model(xb, train=True, sample_weight=wb,
                      dropout_generator=dropout_generator)
@@ -174,8 +196,8 @@ def train_step(lane: LaneState, xb, yb, wb, lr, loss_impl,
         ok = (wb.sum() > 0) & torch.isfinite(loss)
         lane.flat.copy_(torch.where(ok, lane.flat - lr * u, lane.flat))
         lane.stats.copy_(torch.where(ok, lane.stats, stats_before))
-        lane.opt_state = tuple(torch.where(ok, n, o)
-                               for n, o in zip(new_opt, lane.opt_state))
+        for s, n in zip(lane.opt_state, new_opt):
+            s.copy_(torch.where(ok, n, s))
     return loss
 
 
@@ -211,83 +233,235 @@ def _val_index(val_mask, settings):
                          stable=True)[..., :settings.val_rows]
 
 
+def _has_dropout(model):
+    return any(isinstance(m, Dropout) and m.rate > 0 for m in model.modules())
+
+
+def _state_vector(state, names, device):
+    """The tensors of `state` (a state_dict) named `names`, flattened and
+    concatenated on `device`."""
+    if not names:
+        return torch.zeros(0, device=device)
+    return torch.cat([state[n].detach().reshape(-1).to(device)
+                      for n in names])
+
+
+def _settings_key(settings):
+    return (settings.batch_size, settings.patience, settings.b1,
+            settings.b2, settings.eps, settings.loss)
+
+
+def fold_key(model, x, y, n_real, val_rows, settings):
+    """The memo key of train_fold's program: the model's structure, the
+    images' and targets' shapes (T, H, W, C, K), the batch size, the real
+    steps per epoch, the val rows, the loss and Adam's constants, the
+    device and the backend flags. The learning rate, the data and the
+    initial weights are inputs, not parts of the key."""
+    return ("train_fold", programs.module_key(model),
+            programs._avals_key((x, y)), n_real, val_rows,
+            _settings_key(settings), programs.device_key(x.device),
+            programs.flags_key())
+
+
+def lanes_key(model, x, y, n_real, val_rows, settings):
+    """The memo key of train_lanes' programs, less the epoch's statics
+    (its steps and, with dropout, the lanes that run): fold_key's with the
+    lane count in y's shape, each lane's real steps and early_exit."""
+    return ("train_lanes", programs.module_key(model),
+            programs._avals_key((x, y)), tuple(n_real), val_rows,
+            settings.early_exit, _settings_key(settings),
+            programs.device_key(x.device), programs.flags_key())
+
+
+def predict_key(model, x):
+    """The memo key of predict's program: the model's structure, the rows
+    and their chunking, the device and the backend flags."""
+    return ("predict", programs.module_key(model), programs._avals_key((x,)),
+            row_chunk(x), programs.device_key(x.device),
+            programs.flags_key())
+
+
+def _program(key, build, uncaptured):
+    """A fresh uncaptured program (the test seam), else the memo's."""
+    return build(False) if uncaptured else programs.memoized(
+        key, lambda: build(True))
+
+
+class _FoldProgram(programs.Program):
+    """One lane's epoch, JAX's `epoch_step` (s2s_ismr_tpu/train/engine.py
+    :162-189): the batches from the epoch's permutation, the real
+    minibatch steps, the val forward and loss, and the best-epoch /
+    patience update, over static buffers:
+      inputs  x_pad, y_pad, w_pad (T + pad rows; the pad rows stay zero),
+              train_mask, the val rows x_val / y_val / w_val, lr (0-d) and
+              perm (the epoch's permutation, loaded before each run);
+      state   the program's module, its parameters and BN buffers views of
+              lane.flat / lane.stats, the Adam state, best_flat /
+              best_stats / best_vloss, wait and stopped;
+      output  vloss, the epoch's val loss."""
+
+    def __init__(self, model, x, y, val_rows, n_real, settings, capture):
+        super().__init__(x.device, capture)
+        dev, T = self.device, x.shape[0]
+        bs = settings.batch_size
+        self.T, self.bs, self.n_real = T, bs, n_real
+        self.pad = -(-T // bs) * bs - T
+        self.patience = settings.patience
+        self.loss_impl = _LOSSES[settings.loss]
+        self.model = copy.deepcopy(model).to(dev)
+        self.pnames = [n for n, _ in self.model.named_parameters()]
+        self.bnames = [n for n, _ in self.model.named_buffers()]
+        self.lane = LaneState.create(self.model, settings, dev)
+        rows = T + self.pad
+        self.x_pad = x.new_zeros((rows,) + x.shape[1:])
+        self.y_pad = y.new_zeros((rows,) + y.shape[1:])
+        self.w_pad = torch.zeros(rows, device=dev)
+        self.train_mask = torch.zeros(T, dtype=torch.bool, device=dev)
+        self.perm = torch.arange(T, device=dev)
+        if val_rows is None:
+            self.x_val, self.y_val = self.x_pad[:T], self.y_pad[:T]
+            self.w_val = torch.zeros(T, device=dev)
+        else:
+            self.x_val = x.new_zeros((val_rows,) + x.shape[1:])
+            self.y_val = y.new_zeros((val_rows,) + y.shape[1:])
+            self.w_val = torch.zeros(val_rows, device=dev)
+        self.lr = torch.zeros((), device=dev)
+        self.best_flat = self.lane.flat.clone()
+        self.best_stats = self.lane.stats.clone()
+        self.best_vloss = torch.full((), float("inf"), device=dev)
+        self.wait = torch.zeros((), dtype=torch.int32, device=dev)
+        self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
+        self.vloss = torch.zeros((), device=dev)
+        self.generators = [torch.Generator(device=dev)
+                           if self.capture and _has_dropout(model) else None]
+        self.build()
+
+    def warm_state(self):
+        return [self.lane.flat, self.lane.stats, *self.lane.opt_state]
+
+    def body(self, steps=None):
+        lane = self.lane
+        batches = _epoch_batches(self.perm, self.train_mask, self.pad,
+                                 self.bs)
+        for j in range(self.n_real if steps is None
+                       else min(steps, self.n_real)):
+            bidx = batches[j]
+            train_step(lane, self.x_pad[bidx], self.y_pad[bidx],
+                       self.w_pad[bidx], self.lr, self.loss_impl,
+                       self.generators[0])
+        with torch.no_grad():
+            out = eval_rows(lambda v: self.model(v, train=False), self.x_val)
+            vloss = self.loss_impl(out, self.y_val, self.w_val)
+            improved = (vloss < self.best_vloss) & ~self.stopped
+            self.best_flat.copy_(torch.where(improved, lane.flat,
+                                             self.best_flat))
+            self.best_stats.copy_(torch.where(improved, lane.stats,
+                                              self.best_stats))
+            self.best_vloss.copy_(torch.where(improved, vloss,
+                                              self.best_vloss))
+            self.wait.copy_(torch.where(
+                improved, torch.zeros_like(self.wait),
+                self.wait + (~self.stopped).to(torch.int32)))
+            self.stopped.copy_(self.stopped | (self.wait >= self.patience))
+            self.vloss.copy_(vloss)
+
+    def load(self, x, y, train_mask, val_mask, vidx, lr, state):
+        """A lane's inputs and initial state into the buffers."""
+        T, dev = self.T, self.device
+        with torch.no_grad():
+            self.x_pad[:T].copy_(x)
+            self.y_pad[:T].copy_(y)
+            self.w_pad[:T].copy_(train_mask)
+            self.train_mask.copy_(train_mask)
+            if vidx is None:
+                self.w_val.copy_(val_mask)
+            else:
+                self.x_val.copy_(x[vidx])
+                self.y_val.copy_(y[vidx])
+                self.w_val.copy_(val_mask[vidx])
+            if isinstance(lr, torch.Tensor):
+                self.lr.copy_(lr)
+            else:
+                self.lr.fill_(lr)
+            self.lane.flat.copy_(_state_vector(state, self.pnames, dev))
+            self.lane.stats.copy_(_state_vector(state, self.bnames, dev))
+            for t in self.lane.opt_state:
+                t.zero_()
+            self.best_flat.copy_(self.lane.flat)
+            self.best_stats.copy_(self.lane.stats)
+            self.best_vloss.fill_(float("inf"))
+            self.wait.zero_()
+            self.stopped.zero_()
+
+    def best_state(self):
+        """The best epoch's state_dict (copies); the module is left holding
+        it."""
+        with torch.no_grad():
+            self.lane.flat.copy_(self.best_flat)
+            self.lane.stats.copy_(self.best_stats)
+        return {k: v.detach().clone()
+                for k, v in self.model.state_dict().items()}
+
+
 def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
                generator: torch.Generator | None, settings: TrainSettings,
                init_variables: dict | None = None, epoch_perms=None,
-               dropout_generator: torch.Generator | None = None):
-    """Train one lane in place; return (best_state, best_val_loss, history).
+               dropout_generator: torch.Generator | None = None,
+               _uncaptured: bool = False):
+    """Train one lane; return (best_state, best_val_loss, history).
 
-    model:     module with forward(x, train, sample_weight); trained in
-               place and left holding the best-epoch state
+    model:     module with forward(x, train, sample_weight), on x's
+               device; left holding the best-epoch state
     x:         (T, H, W, C) float32 predictor images, on the model's device
     y_onehot:  (T, H, W, 3) targets for this lane's fold
     train_mask/val_mask: (T,) bool
-    lr:        float learning rate
+    lr:        learning rate (a float or a 0-d tensor)
     generator: CPU torch.Generator for the per-epoch batch permutations
     init_variables: optional state_dict loaded before training
     epoch_perms: optional (epochs, T) int64 permutations used instead of
                the generator's (a test seam: feeds JAX's batch orders)
     dropout_generator: generator on x's device for the model's dropout
                masks (models without dropout ignore it)
+    _uncaptured: run the epoch body without capture on the card, in a
+               program of its own (a test seam: the graph's yardstick)
     Returns the best state_dict (copies), the best val loss (0-d tensor)
     and the per-epoch val losses (epochs,), NaN past an early exit.
     """
     dev = x.device
     T = x.shape[0]
     bs = settings.batch_size
-    pad = -(-T // bs) * bs - T
     train_mask = torch.as_tensor(train_mask, dtype=torch.bool, device=dev)
     val_mask = torch.as_tensor(val_mask, dtype=torch.bool, device=dev)
-
-    x_pad, y_pad = _pad_rows(x, pad), _pad_rows(y_onehot, pad)
-    w_pad = _pad_rows(train_mask.to(torch.float32), pad)
     n_real = train_batches(int(train_mask.sum()), bs)
-
     if init_variables is not None:
         model.load_state_dict(init_variables)
-    lane = LaneState.create(model, settings, dev)
-    flat, stats = lane.flat, lane.stats
-    loss_impl = _LOSSES[settings.loss]
-
     vidx = _val_index(val_mask, settings)
-    if vidx is not None:
-        x_val, y_val = x[vidx], y_onehot[vidx]
-        w_val = val_mask[vidx].to(torch.float32)
-    else:
-        x_val, y_val, w_val = x, y_onehot, val_mask.to(torch.float32)
+    val_rows = None if vidx is None else vidx.shape[0]
+    key = fold_key(model, x, y_onehot, n_real, val_rows, settings)
+    prog = _program(key, lambda capture: _FoldProgram(
+        model, x, y_onehot, val_rows, n_real, settings, capture),
+        _uncaptured)
 
-    best_flat, best_stats = flat.clone(), stats.clone()
-    best_vloss = torch.tensor(float("inf"), device=dev)
-    wait = torch.zeros((), dtype=torch.int32, device=dev)
-    stopped = torch.zeros((), dtype=torch.bool, device=dev)
     hist = torch.full((settings.epochs,), float("nan"), device=dev)
-
-    for e in range(settings.epochs):
-        if settings.early_exit and e > 0 and bool(stopped):
-            break
-        perm = (torch.as_tensor(epoch_perms[e]) if epoch_perms is not None
-                else torch.randperm(T, generator=generator)).to(dev)
-        batches = _epoch_batches(perm, train_mask, pad, bs)
-        for bidx in batches[:n_real]:
-            train_step(lane, x_pad[bidx], y_pad[bidx], w_pad[bidx], lr,
-                       loss_impl, dropout_generator)
-
-        with torch.no_grad():
-            out = eval_rows(lambda v: model(v, train=False), x_val)
-            vloss = loss_impl(out, y_val, w_val)
-            improved = (vloss < best_vloss) & ~stopped
-            best_flat = torch.where(improved, flat, best_flat)
-            best_stats = torch.where(improved, stats, best_stats)
-            best_vloss = torch.where(improved, vloss, best_vloss)
-            wait = torch.where(improved, torch.zeros_like(wait),
-                               wait + (~stopped).to(torch.int32))
-            stopped = stopped | (wait >= settings.patience)
-            hist[e] = vloss
-
-    with torch.no_grad():
-        flat.copy_(best_flat)
-        stats.copy_(best_stats)
-    best = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    gens = [dropout_generator]
+    with prog.lock:
+        prog.load(x, y_onehot, train_mask, val_mask, vidx, lr,
+                  model.state_dict())
+        prog.bind(gens)
+        try:
+            for e in range(settings.epochs):
+                if settings.early_exit and e > 0 and bool(prog.stopped):
+                    break
+                prog.perm.copy_(
+                    torch.as_tensor(epoch_perms[e]) if epoch_perms is not None
+                    else torch.randperm(T, generator=generator))
+                prog.run()
+                hist[e].copy_(prog.vloss)
+        finally:
+            prog.unbind(gens)
+        best = prog.best_state()
+        best_vloss = prog.best_vloss.clone()
+    model.load_state_dict(best)
     return best, best_vloss, hist
 
 
@@ -319,9 +493,174 @@ def _unflatten(vec, spec):
     return out
 
 
+class _LanesProgram(programs.Program):
+    """L lanes' epoch batched, JAX's vmapped `epoch_step`: _FoldProgram's
+    buffers with a leading lane axis (x_pad shared), the lanes' parameters
+    and BN buffers as (L, P) and (L, S) flats, and one vmapped
+    grad_and_value step for all lanes' batch j. Statics besides the
+    shapes: each lane's real steps (n_real), the epoch's steps (n_steps)
+    and, when the model draws dropout, which lanes run (`active`: a lane
+    draws masks only for the batches it trains on). Without dropout the
+    lanes that run are data: `active` is ~stopped, read on the device."""
+
+    def __init__(self, model, L, x, y, val_rows, n_real, n_steps, active,
+                 settings, capture):
+        super().__init__(x.device, capture)
+        dev, T = self.device, x.shape[0]
+        bs = settings.batch_size
+        self.L, self.T, self.bs = L, T, bs
+        self.pad = -(-T // bs) * bs - T
+        self.n_steps, self.statics = n_steps, (n_steps, active)
+        self.patience, self.early_exit = settings.patience, settings.early_exit
+        loss_impl = _LOSSES[settings.loss]
+        self.model = model = copy.deepcopy(model).to(dev)
+        p_spec = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+        b_spec = [(n, tuple(b.shape)) for n, b in model.named_buffers()]
+        self.p_spec, self.b_spec = p_spec, b_spec
+        P = sum(math.prod(s) for _, s in p_spec)
+        S = sum(math.prod(s) for _, s in b_spec)
+        self.flat = torch.zeros((L, P), device=dev)
+        self.stats = torch.zeros((L, S), device=dev)
+        self.opt = Adam(settings.b1, settings.b2, settings.eps)
+        self.opt_state = self.opt.init(self.flat)
+        rows = T + self.pad
+        self.x_pad = x.new_zeros((rows,) + x.shape[1:])
+        self.y_pad = y.new_zeros((L, rows) + y.shape[2:])
+        self.w_pad = torch.zeros((L, rows), device=dev)
+        self.train_masks = torch.zeros((L, T), dtype=torch.bool, device=dev)
+        self.perms = torch.arange(T, device=dev).repeat(L, 1)
+        if val_rows is None:
+            self.x_val = self.x_pad[:T].expand((L,) + x.shape)
+            self.y_val = self.y_pad[:, :T]
+            self.w_val = torch.zeros((L, T), device=dev)
+        else:
+            self.x_val = x.new_zeros((L, val_rows) + x.shape[1:])
+            self.y_val = y.new_zeros((L, val_rows) + y.shape[2:])
+            self.w_val = torch.zeros((L, val_rows), device=dev)
+        self.lr_col = torch.zeros((L, 1), device=dev)
+        self.n_real_t = torch.tensor(n_real, device=dev)
+        self.lane_rows = torch.arange(L, device=dev)[:, None]
+        self.best_flat = torch.zeros_like(self.flat)
+        self.best_stats = torch.zeros_like(self.stats)
+        self.best_vloss = torch.full((L,), float("inf"), device=dev)
+        self.wait = torch.zeros(L, dtype=torch.int32, device=dev)
+        self.stopped = torch.zeros(L, dtype=torch.bool, device=dev)
+        self.hist_col = torch.zeros(L, device=dev)
+        self.drop = next((m for m in model.modules()
+                          if isinstance(m, Dropout) and m.rate > 0), None)
+        self.drop_shapes = (model.dropout_shapes(bs, *x.shape[1:3])
+                            if self.drop is not None else [])
+        self.live = [[a and j < n for j in range(n_steps)]
+                     for n, a in zip(n_real, active or [True] * L)]
+        self.generators = [torch.Generator(device=dev)
+                           if self.capture and self.drop is not None
+                           else None for _ in range(L)]
+
+        def forward(p, s, xv, **kw):
+            state = {**_unflatten(p, p_spec), **_unflatten(s, b_spec)}
+            return torch.func.functional_call(model, state, (xv,), kw), state
+
+        def lane_loss(p, s, xb, yb, wb, masks):
+            kw = {"dropout_masks": masks} if masks else {}
+            with functional_batchnorm(model) as updates:
+                out, state = forward(p, s, xb, train=True, sample_weight=wb,
+                                     **kw)
+            new_s = (torch.cat([updates.get(n, state[n]).reshape(-1)
+                                for n, _ in b_spec]) if b_spec else s)
+            return loss_impl(out, yb, wb), new_s
+
+        self.step = torch.func.vmap(
+            torch.func.grad_and_value(lane_loss, has_aux=True))
+        self.val_fwd = torch.func.vmap(
+            lambda p, s, xv: forward(p, s, xv, train=False)[0])
+        self.val_loss = torch.func.vmap(loss_impl)
+        self.build()
+
+    def carry(self):
+        """The state an epoch hands the next."""
+        return [self.flat, self.stats, *self.opt_state, self.best_flat,
+                self.best_stats, self.best_vloss, self.wait, self.stopped]
+
+    def warm_state(self):
+        return [self.flat, self.stats, *self.opt_state]
+
+    def body(self, steps=None):
+        L, dev = self.L, self.device
+        rows = self.lane_rows
+        active = (~self.stopped if self.early_exit
+                  else torch.ones(L, dtype=torch.bool, device=dev))
+        batches = _epoch_batches(self.perms, self.train_masks, self.pad,
+                                 self.bs)
+        # live[i, j]: lane i trains on its batch j (else a weight-0 batch)
+        live = (active[:, None] & (torch.arange(self.n_steps, device=dev)
+                                   < self.n_real_t[:, None])
+                ).to(torch.float32)
+        for j in range(self.n_steps if steps is None
+                       else min(steps, self.n_steps)):
+            bidx = batches[:, j]                                  # (L, bs)
+            wb = self.w_pad[rows, bidx] * live[:, j:j + 1]
+            masks = []
+            if self.drop_shapes:
+                lane_masks = [
+                    [self.drop.draw_mask(sh, self.generators[i], dev)
+                     for sh in self.drop_shapes] if self.live[i][j]
+                    else [torch.ones(sh, dtype=torch.bool, device=dev)
+                          for sh in self.drop_shapes] for i in range(L)]
+                masks = [torch.stack(ms) for ms in zip(*lane_masks)]
+            grads, (loss, new_stats) = self.step(
+                self.flat, self.stats, self.x_pad[bidx],
+                self.y_pad[rows, bidx], wb, masks)
+            with torch.no_grad():
+                u, new_opt = self.opt.update(grads, self.opt_state)
+                ok = ((wb.sum(1) > 0) & torch.isfinite(loss))[:, None]
+                self.flat.copy_(torch.where(ok, self.flat - self.lr_col * u,
+                                            self.flat))
+                self.stats.copy_(torch.where(ok, new_stats, self.stats))
+                for s, n in zip(self.opt_state, new_opt):
+                    s.copy_(torch.where(
+                        ok.reshape((L,) + (1,) * (n.ndim - 1)), n, s))
+
+        with torch.no_grad():
+            out = eval_rows(lambda v: self.val_fwd(self.flat, self.stats, v),
+                            self.x_val, axis=1)
+            vloss = self.val_loss(out, self.y_val, self.w_val)
+            improved = (vloss < self.best_vloss) & ~self.stopped & active
+            self.best_flat.copy_(torch.where(improved[:, None], self.flat,
+                                             self.best_flat))
+            self.best_stats.copy_(torch.where(improved[:, None], self.stats,
+                                              self.best_stats))
+            self.best_vloss.copy_(torch.where(improved, vloss,
+                                              self.best_vloss))
+            self.wait.copy_(torch.where(
+                improved, torch.zeros_like(self.wait),
+                self.wait + (~self.stopped & active).to(torch.int32)))
+            self.stopped.copy_(self.stopped | (self.wait >= self.patience))
+            self.hist_col.copy_(torch.where(
+                active, vloss, torch.full_like(vloss, float("nan"))))
+
+    def load(self, x, y, train_masks, val_masks, vidx, lr_col, carry):
+        """The lanes' inputs and the carried state into the buffers."""
+        T = self.T
+        with torch.no_grad():
+            self.x_pad[:T].copy_(x)
+            self.y_pad[:, :T].copy_(y)
+            self.w_pad[:, :T].copy_(train_masks)
+            self.train_masks.copy_(train_masks)
+            if vidx is None:
+                self.w_val.copy_(val_masks)
+            else:
+                self.x_val.copy_(x[vidx])
+                self.y_val.copy_(y[self.lane_rows, vidx])
+                self.w_val.copy_(torch.gather(val_masks, 1, vidx))
+            self.lr_col.copy_(lr_col)
+            for dst, src in zip(self.carry(), carry):
+                dst.copy_(src)
+
+
 def train_lanes(models, x, y_onehot, train_masks, val_masks, lrs,
                 generators, settings: TrainSettings, init_variables=None,
-                epoch_perms=None, dropout_generators=None) -> LanesResult:
+                epoch_perms=None, dropout_generators=None,
+                _uncaptured: bool = False) -> LanesResult:
     """Train L lanes of one architecture together: JAX's vmap(train_fold).
 
     models:     L modules of one architecture on x's device, each holding
@@ -333,6 +672,7 @@ def train_lanes(models, x, y_onehot, train_masks, val_masks, lrs,
     generators: L CPU generators for the lanes' batch orders
     init_variables, epoch_perms, dropout_generators: per lane, as
                 train_fold's (lists of L, or None)
+    _uncaptured: as train_fold's (a test seam)
     Lane i gets exactly what train_fold gives it with its own arguments,
     up to float32 sum order: one vmapped step runs every lane's batch j;
     a lane past its real batches, or stopped, gets a weight-0 batch (a
@@ -340,130 +680,82 @@ def train_lanes(models, x, y_onehot, train_masks, val_masks, lrs,
     The loop ends when every lane has stopped (one host read per epoch,
     with early_exit), as JAX's vmapped while_loop runs to the last lane's
     stop. Val losses run lane-batched in row chunks of row_chunk(x) rows
-    per lane.
+    per lane. When the epoch's program changes (a lane stopped), the
+    state carries over into the next program.
     """
     dev = x.device
     L, T = len(models), x.shape[0]
     bs = settings.batch_size
-    n_batches = -(-T // bs)
-    pad = n_batches * bs - T
     train_masks = torch.as_tensor(train_masks, dtype=torch.bool, device=dev)
     val_masks = torch.as_tensor(val_masks, dtype=torch.bool, device=dev)
     y_onehot = torch.as_tensor(y_onehot, device=dev)
     init_variables = init_variables or [None] * L
     epoch_perms = epoch_perms or [None] * L
     dropout_generators = dropout_generators or [None] * L
-
-    x_pad = _pad_rows(x, pad)
-    y_pad = _pad_rows(y_onehot, pad, axis=1)
-    w_pad = _pad_rows(train_masks.to(torch.float32), pad, axis=1)
     n_real = [train_batches(int(n), bs) for n in train_masks.sum(1).cpu()]
-    lane_rows = torch.arange(L, device=dev)[:, None]
 
     for m, init in zip(models, init_variables):
         if init is not None:
             m.load_state_dict(init)
     model = models[0]
-    p_spec = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
-    b_spec = [(n, tuple(b.shape)) for n, b in model.named_buffers()]
     flat = _stack_flat([list(m.parameters()) for m in models]).to(dev)
     stats = _stack_flat([list(m.buffers()) for m in models]).to(dev)
-    opt = Adam(settings.b1, settings.b2, settings.eps)
-    opt_state = opt.init(flat)
     lr_col = torch.tensor([float(v) for v in lrs], dtype=torch.float32,
                           device=dev)[:, None]
-    loss_impl = _LOSSES[settings.loss]
-    drop = next((m for m in model.modules()
-                 if isinstance(m, Dropout) and m.rate > 0), None)
-    drop_shapes = (model.dropout_shapes(bs, *x.shape[1:3])
-                   if drop is not None else [])
-
-    def forward(p, s, xv, **kw):
-        state = {**_unflatten(p, p_spec), **_unflatten(s, b_spec)}
-        return torch.func.functional_call(model, state, (xv,), kw), state
-
-    def lane_loss(p, s, xb, yb, wb, masks):
-        kw = {"dropout_masks": masks} if masks else {}
-        with functional_batchnorm(model) as updates:
-            out, state = forward(p, s, xb, train=True, sample_weight=wb,
-                                 **kw)
-        new_s = (torch.cat([updates.get(n, state[n]).reshape(-1)
-                            for n, _ in b_spec]) if b_spec else s)
-        return loss_impl(out, yb, wb), new_s
-
-    step = torch.func.vmap(torch.func.grad_and_value(lane_loss, has_aux=True))
-    val_fwd = torch.func.vmap(lambda p, s, xv: forward(p, s, xv,
-                                                       train=False)[0])
-    val_loss = torch.func.vmap(loss_impl)
-
     vidx = _val_index(val_masks, settings)
-    if vidx is not None:
-        x_val, y_val = x[vidx], y_onehot[lane_rows, vidx]
-        w_val = torch.gather(val_masks, 1, vidx).to(torch.float32)
-    else:
-        x_val, y_val = x.expand((L,) + x.shape), y_onehot
-        w_val = val_masks.to(torch.float32)
+    val_rows = None if vidx is None else vidx.shape[1]
+    has_drop = _has_dropout(model)
+    base = lanes_key(model, x, y_onehot, n_real, val_rows, settings)
+    carry = [flat, stats, torch.zeros(L, dtype=torch.int32, device=dev),
+             torch.zeros_like(flat), torch.zeros_like(flat), flat.clone(),
+             stats.clone(), torch.full((L,), float("inf"), device=dev),
+             torch.zeros(L, dtype=torch.int32, device=dev),
+             torch.zeros(L, dtype=torch.bool, device=dev)]
 
-    best_flat, best_stats = flat.clone(), stats.clone()
-    best_vloss = torch.full((L,), float("inf"), device=dev)
-    wait = torch.zeros(L, dtype=torch.int32, device=dev)
-    stopped = torch.zeros(L, dtype=torch.bool, device=dev)
     hist = torch.full((L, settings.epochs), float("nan"), device=dev)
     steps = epochs = 0
+    prog = None
+    try:
+        for e in range(settings.epochs):
+            active = [True] * L
+            if settings.early_exit and e > 0:
+                active = (~prog.stopped).tolist()
+                if not any(active):
+                    break
+            n_steps = max(n for n, a in zip(n_real, active) if a)
+            statics = (n_steps, tuple(active) if has_drop else None)
+            if prog is None or prog.statics != statics:
+                if prog is not None:
+                    carry = [t.clone() for t in prog.carry()]
+                    prog.unbind(dropout_generators)
+                    prog.lock.release()
+                    prog = None
+                new = _program(base + statics, lambda capture: _LanesProgram(
+                    model, L, x, y_onehot, val_rows, n_real, *statics,
+                    settings, capture), _uncaptured)
+                new.lock.acquire()
+                prog = new
+                prog.load(x, y_onehot, train_masks, val_masks, vidx, lr_col,
+                          carry)
+                prog.bind(dropout_generators)
+            prog.perms.copy_(torch.stack([
+                (torch.as_tensor(epoch_perms[i][e])
+                 if epoch_perms[i] is not None
+                 else torch.randperm(T, generator=generators[i]))
+                if active[i] else torch.arange(T) for i in range(L)]))
+            prog.run()
+            hist[:, e].copy_(prog.hist_col)
+            steps += n_steps
+            epochs += 1
+        src = prog.carry() if prog is not None else carry
+        best_flat, best_stats, best_vloss = (t.clone() for t in src[5:8])
+    finally:
+        if prog is not None:
+            prog.unbind(dropout_generators)
+            prog.lock.release()
 
-    for e in range(settings.epochs):
-        active = [True] * L
-        if settings.early_exit and e > 0:
-            active = (~stopped).tolist()
-            if not any(active):
-                break
-        perms = torch.stack([
-            (torch.as_tensor(epoch_perms[i][e]) if epoch_perms[i] is not None
-             else torch.randperm(T, generator=generators[i])) if active[i]
-            else torch.arange(T) for i in range(L)]).to(dev)
-        batches = _epoch_batches(perms, train_masks, pad, bs)
-        n_steps = max(n for n, a in zip(n_real, active) if a)
-        # live[i][j]: lane i trains on its batch j (else a weight-0 batch)
-        live = [[a and j < n for j in range(n_steps)]
-                for n, a in zip(n_real, active)]
-        live_t = torch.tensor(live, dtype=torch.float32, device=dev)
-        for j in range(n_steps):
-            bidx = batches[:, j]                                  # (L, bs)
-            wb = w_pad[lane_rows, bidx] * live_t[:, j:j + 1]
-            masks = []
-            if drop_shapes:
-                lane_masks = [
-                    [drop.draw_mask(sh, dropout_generators[i], dev)
-                     for sh in drop_shapes] if live[i][j]
-                    else [torch.ones(sh, dtype=torch.bool, device=dev)
-                          for sh in drop_shapes] for i in range(L)]
-                masks = [torch.stack(ms) for ms in zip(*lane_masks)]
-            grads, (loss, new_stats) = step(flat, stats, x_pad[bidx],
-                                            y_pad[lane_rows, bidx], wb, masks)
-            with torch.no_grad():
-                u, new_opt = opt.update(grads, opt_state)
-                ok = ((wb.sum(1) > 0) & torch.isfinite(loss))[:, None]
-                flat = torch.where(ok, flat - lr_col * u, flat)
-                stats = torch.where(ok, new_stats, stats)
-                opt_state = tuple(
-                    torch.where(ok.reshape((L,) + (1,) * (n.ndim - 1)), n, o)
-                    for n, o in zip(new_opt, opt_state))
-        steps += n_steps
-        epochs += 1
-
-        with torch.no_grad():
-            out = eval_rows(lambda v: val_fwd(flat, stats, v), x_val, axis=1)
-            vloss = val_loss(out, y_val, w_val)
-            ran = torch.tensor(active, device=dev)
-            improved = (vloss < best_vloss) & ~stopped & ran
-            best_flat = torch.where(improved[:, None], flat, best_flat)
-            best_stats = torch.where(improved[:, None], stats, best_stats)
-            best_vloss = torch.where(improved, vloss, best_vloss)
-            wait = torch.where(improved, torch.zeros_like(wait),
-                               wait + (~stopped & ran).to(torch.int32))
-            stopped = stopped | (wait >= settings.patience)
-            hist[:, e] = torch.where(ran, vloss, hist[:, e])
-
+    p_spec = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+    b_spec = [(n, tuple(b.shape)) for n, b in model.named_buffers()]
     keys = list(model.state_dict())
     best = []
     for i in range(L):
@@ -485,17 +777,62 @@ def deterministic_cudnn():
         torch.backends.cudnn.deterministic = prev
 
 
-def predict(model: nn.Module, variables, x):
+class _PredictProgram(programs.Program):
+    """A model's eval forward over every row of x in row chunks, JAX's
+    memoized `winner_forward` (s2s_ismr_tpu/train/sweep.py:113-126):
+    inputs the module's state (flat / stats) and x, output `out`."""
+
+    kind = "predict"
+
+    def __init__(self, model, x, capture):
+        super().__init__(x.device, capture)
+        self.model = copy.deepcopy(model).to(self.device)
+        self.pnames = [n for n, _ in self.model.named_parameters()]
+        self.bnames = [n for n, _ in self.model.named_buffers()]
+        self.flat = _flatten_storage(list(self.model.parameters()),
+                                     self.device)
+        self.stats = _flatten_storage(list(self.model.buffers()),
+                                      self.device)
+        self.x = torch.zeros_like(x)
+        self.out = None       # allocated by the first run (the warm-up)
+        self.build()
+
+    def warm_state(self):
+        return [self.flat, self.stats]
+
+    def body(self, steps=None):
+        with torch.no_grad():
+            y = eval_rows(lambda v: self.model(v, train=False), self.x)
+            if self.out is None:
+                self.out = y
+            else:
+                self.out.copy_(y)
+
+    def load(self, state, x):
+        with torch.no_grad():
+            self.flat.copy_(_state_vector(state, self.pnames, self.device))
+            self.stats.copy_(_state_vector(state, self.bnames, self.device))
+            self.x.copy_(x)
+
+
+def predict(model: nn.Module, variables, x, _uncaptured: bool = False):
     """Inference forward over the full T axis (eval mode, running BN), in
-    fixed chunks of row_chunk(x) rows.
+    fixed chunks of row_chunk(x) rows, through the memo's program for the
+    model's structure and x's shape.
     variables: a state_dict, or None for the model's own state.
+    _uncaptured: as train_fold's (a test seam).
 
     cuDNN is held deterministic, so a winner's predictions reproduce bit
     for bit when it is reloaded."""
-    def fwd(v):
-        if variables is None:
-            return model(v, train=False)
-        return torch.func.functional_call(model, variables, (v,),
-                                          {"train": False})
+    state = model.state_dict()
+    if variables is not None:
+        state.update(variables)
     with deterministic_cudnn(), torch.no_grad():
-        return eval_rows(fwd, x)
+        key = predict_key(model, x)
+        prog = _program(key, lambda capture: _PredictProgram(model, x,
+                                                             capture),
+                        _uncaptured)
+        with prog.lock:
+            prog.load(state, x)
+            prog.run()
+            return prog.out.clone()

@@ -16,8 +16,12 @@ Lanes (fold x trial) run as the JAX sweep's `lane_dispatch` says:
     padded to a device multiple with copies of lane 0, cut into one block
     per device, each device running its block in a thread of its own, lane
     after lane ('auto') or batched ('vmap').
-Eager torch has no compile to hide, so the JAX program memo, compile-ahead
-and compile thread pools have no counterpart.
+Every lane trains through the engine's programs (`programs`, JAX's program
+memo): the lanes of a bucket and fold share one program, and so do the MME
+models and suite configs of the same shapes; each lane's learning rate,
+data and initial weights are the program's inputs. The winner forwards are
+programs too (`engine.predict`). A capture takes about a second, so the
+JAX sweep's compile-ahead and compile thread pools have no counterpart.
 
 `run_fixed_training` is the fixed single-configuration training of the
 cnn/mlp models and of training_type='train': one lane per fold.
