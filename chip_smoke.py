@@ -7,7 +7,9 @@ Phases, each on its own lines; any failure exits non-zero before the last
 line is printed:
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles the package's CUDA kernels from csrc/ (the wrapper's
-     tile table and K chunk must equal the library's);
+     tile table and K chunk must equal the library's); the library's SASS
+     (`cuobjdump -sass`) must hold the halo tiles' wgmma (HGMMA) and TMA
+     loads (UTMALDG);
   3. kernel vs plain: the conv3x3 kernel against its plain PyTorch version
      run in float64 (TF32 off everywhere) at every conv shape of the
      tune_ECMWF_com U-Nets (filters 2 and 3, n_blocks 3, 32x32, batch 16),
@@ -21,7 +23,8 @@ line is printed:
      device time of the kernel and of cuDNN's F.conv2d in turns, and of the
      plain version, for the forward and the dx mode, beside the bound and
      the kernel's share of it (FLOP at the float32 rate, and beside it at
-     the 3xTF32 rate);
+     the 3xTF32 rate), each shape's tile and family, the family counts
+     and every case where cuDNN is faster, with its ratio;
   4. main path: the NN branch of tune_ECMWF_com (fast variant: 2 folds,
      2 trials, up to 6 epochs) on the synthetic 32x32 grid, T = 349; checks
      finite val losses and RPSS, and that the kernel was launched exactly as
@@ -86,7 +89,8 @@ line is printed:
      and every lane bit-equal to a one-lane launch of it with the same
      tile; (b) the device time of the lane mode, of L one-lane launches
      and of cuDNN's grouped conv (groups = L) in turns, beside L times
-     the one-lane bound; (c) run_unet_sweep of the fast tune_ECMWF_com
+     the one-lane bound, the family counts and every case where cuDNN's
+     grouped conv is faster; (c) run_unet_sweep of the fast tune_ECMWF_com
      with learning rates (1e-3, 1e-4) (4 lanes per bucket), 3 epochs,
      lane_dispatch 'vmap' then 'serial': launches exact (27 lane-mode
      launches per batched step, 14 per batched val epoch, 14 one-lane per
@@ -104,7 +108,8 @@ line is printed:
      its shapes, every launch twice and bit-equal, the C = O = 384 and 3x3
      shapes named; the eval shapes (val rows and T in row chunks) forward
      only; the device times of the 134 shapes in turns with cuDNN, summed
-     per grid family, and every shape where cuDNN wins; (b) `run.main(
+     per grid family, the family counts and every case where cuDNN
+     wins, with its ratio; (b) `run.main(
      ["suite", "--synthetic", "--folds", "1", "--epochs", "1", "--out",
      <dir>, "--check", <s2s_ismr_tpu_torch/expected/
      suite_rpss_h100_cut.json>])` in-process with cuDNN deterministic: all
@@ -121,8 +126,9 @@ line is printed:
      phase 3 checks its shapes, and forward only at its val-row and T eval
      shapes and at the stacked predictor's eval chunks (488 rows, and the
      val rows' and T rows' last chunks of 160 and 240) of every conv of
-     n_blocks 3 / filters 2 and n_blocks 5 / filters 3; their device times in turns with cuDNN and each shape's
-     kernel / cuDNN ratio; (b) `run.main(["tune_IITM_full", "--synthetic",
+     n_blocks 3 / filters 2 and n_blocks 5 / filters 3; their device
+     times in turns with cuDNN, each shape's kernel / cuDNN ratio, the
+     family counts and every case where cuDNN wins; (b) `run.main(["tune_IITM_full", "--synthetic",
      "--predictor", "multi_predictor", "--folds", "2", "--epochs", "1",
      ...])`: all 18 trials, the manifest's input shape (1, 64, 64, 24),
      launches exact, RPSS finite on land, the winners reloaded bit-equal,
@@ -156,6 +162,13 @@ line is printed:
      losses within 1e-4 relative, the same winners, each bucket run to
      its last lane's stop (batched epochs and steps printed), launches
      exact;
+  14. (run between phase 12 and phase 11's suite, which it must precede
+     for torch.profiler) the engine's programs, each lane's epoch and each
+     eval forward a memoized CUDA graph, against the uncaptured seam: (a)
+     bit for bit; (b) one profiled replayed epoch: the conv kernel's
+     device events equal to the launch counter's delta, and the kernel's
+     share of the epoch's device time; (c) graph and seam in turns, lane
+     steps/s, idle share and device ops per lane step;
 then checks that neither jax nor any module of the JAX package
 (s2s_ismr_tpu) was loaded; prints the kernels JSON line (launches summed
 over phases 4, 5, 6, 8, 9, 10, 11, 12 and 13; times and bounds summed over
@@ -168,8 +181,17 @@ both modes' idle shares; phase 11's sums over its training shapes under
 grids_*, its shape counts and suite_launches; phase 12's forward sums over
 its eval shapes under iitm_*, over the first convs under iitm_first_* and
 iitm_first_dx_*, its shape count and launches; phase 13's launches
-under depth_launches), the card line, then the result line {"ok": true,
-...}.
+under depth_launches; phase 14's numbers under programs_*, with
+programs_kernel_share the conv kernel's share of a replayed epoch's
+device time; the tile family counts per phase and mode under families),
+the card line, then the result line {"ok": true, ...}.
+
+    python3 chip_smoke.py --shapes-json PATH
+
+runs phases 1-2 and writes the shapes phases 3, 10, 11 and 12 time,
+with their act and modes, to PATH (for `python -m
+s2s_ismr_tpu_torch.kernels.conv_bench tiles --shapes PATH`, whose sweep
+`conv_bench fit` fits the wrapper's tile cost model to).
 
     python3 chip_smoke.py --write-expected PATH
 
@@ -233,6 +255,46 @@ def errors(got, want):
     excess = float((diff - (bench.ATOL + bench.RTOL * want.abs())).max())
     return (float(diff.max()),
             float((diff / want.abs().clamp_min(1e-30)).max()), excess)
+
+
+def is_conv_kernel(name):
+    """Whether a device event is one of the conv kernel's launches (every
+    tile family's kernel is named conv3x3_*_kernel)."""
+    return "conv3x3_" in name and "_kernel" in name
+
+
+# tiles taken per phase, mode and family at the shapes each phase times
+# (printed with the phase, and in the kernels line)
+FAMILY_COUNTS = {}
+
+
+def count_families(conv, phase, shapes, act="elu", modes=("fwd", "dx"),
+                   lanes=1):
+    """The wrapper's tile family at each shape and mode, tallied under
+    FAMILY_COUNTS[phase] and printed."""
+    tally = FAMILY_COUNTS.setdefault(phase, {})
+    for shape in shapes:
+        for mode in modes:
+            t = conv.launch_tile(shape, mode == "dx", act == "elu", lanes)
+            fam = conv.FAMILIES[conv.TILES[t][0]]
+            tally.setdefault(mode, {})
+            tally[mode][fam] = tally[mode].get(fam, 0) + 1
+    print(f"  tile families (phase {phase} so far): "
+          + "; ".join(f"{m} {dict(sorted(f.items()))}"
+                      for m, f in tally.items()))
+
+
+def print_wins(per_shape, n_cases=None):
+    """Every (shape, mode) of kernel_times' per-shape numbers where cuDNN
+    is faster than the kernel, with the kernel / cuDNN ratio."""
+    wins = [(t, m, r["ms"] / r["library_ms"])
+            for t, modes in per_shape.items() for m, r in modes.items()
+            if r["library_ms"] < r["ms"]]
+    n = n_cases or sum(len(m) for m in per_shape.values())
+    print(f"  cuDNN faster at {len(wins)} of {n} (shape, mode) cases"
+          + (": " + "; ".join(f"{t} {m} {f:.2f}x" for t, m, f in wins)
+             if wins else ""))
+    return wins
 
 
 def run_both(fn, x, k, b, g, act, dtype):
@@ -300,7 +362,8 @@ def kernel_vs_plain(torch, conv, shapes, backward=True,
     return max_abs
 
 
-def kernel_times(torch, conv, shapes, act="elu", modes=("fwd", "dx")):
+def kernel_times(torch, conv, shapes, act="elu", modes=("fwd", "dx"),
+                 phase=None):
     """Device time per launch at each shape, by torch.profiler, of the
     kernel and of cuDNN's F.conv2d (the library yardstick, TF32 off), in
     turns (kernel, cuDNN, kernel, cuDNN), and of the plain version once:
@@ -312,7 +375,10 @@ def kernel_times(torch, conv, shapes, act="elu", modes=("fwd", "dx")):
     3's 22 U-Net shapes its sums were within 5% of one window per timing,
     PERF.md §6). Returns the sums
     over the shapes, in ms, with the bound summed the same way, and the
-    same numbers per shape: {shape: {mode: {key: ms}}}."""
+    same numbers per shape: {shape: {mode: {key: ms}}}. Each shape's line
+    names the tile and family the wrapper took; with `phase`, the family
+    counts are tallied under it and printed, and every case where cuDNN
+    is faster."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(1)
     keys = ("ms", "library_ms", "plain_ms", "bound_ms", "ops_ms",
@@ -354,13 +420,19 @@ def kernel_times(torch, conv, shapes, act="elu", modes=("fwd", "dx")):
                 per_shape.setdefault(shape, {})[mode] = row
                 for key, v in row.items():
                     sums[mode][key] += v
+                tile = conv.launch_tile(shape, mode == "dx", elu)
                 parts.append(
-                    f"{mode}: kernel {t[0] * 1e3:.2f}/{t[2] * 1e3:.2f} us, "
+                    f"{mode} (tile {tile} "
+                    f"{conv.FAMILIES[conv.TILES[tile][0]]}): "
+                    f"kernel {t[0] * 1e3:.2f}/{t[2] * 1e3:.2f} us, "
                     f"cuDNN {t[1] * 1e3:.2f}/{t[3] * 1e3:.2f} us, plain "
                     f"{t[4] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us "
                     f"({by}), {bnd / ms:.1%} of bound; at 3xTF32 "
                     f"{bnd3 * 1e3:.3f} us ({by3}), {bnd3 / ms:.1%}")
         print(f"  {str(shape):<22} {act:<4} " + "   ".join(parts))
+    if phase is not None:
+        count_families(conv, phase, shapes, act, modes)
+        print_wins(per_shape)
     return sums, per_shape
 
 
@@ -1386,8 +1458,7 @@ def traced_run(torch, conv, card, work):
         parse_s = time.perf_counter() - t0
         kernels = [e for e in events
                    if str(e.get("cat", "")).lower() == "kernel"]
-        n_conv = sum("conv3x3_mma_kernel" in e.get("name", "")
-                     for e in kernels)
+        n_conv = sum(is_conv_kernel(e.get("name", "")) for e in kernels)
         print(f"  (d) {stage} trace {os.path.relpath(rec.path, work)}: "
               f"{rec.bytes} bytes, written in {rec.write_s:.3f} s, parsed "
               f"in {parse_s:.3f} s; {len(events)} events, {len(kernels)} "
@@ -1454,9 +1525,8 @@ def lane_kernel_checks(torch, conv, shapes):
                 held(f"dx {tag}", dx, dx_w)
                 held(f"g' {tag}", gp, gp_w)
                 # lane i = the one-lane launch of lane i, same tile
-                tf = conv._pick_tile(n * h * wd, o, 9 * c, 1, lanes)
-                td = conv._pick_tile(n * h * wd, c, 9 * o,
-                                     2 if act == "elu" else 1, lanes)
+                tf = conv.launch_tile(shape, lanes=lanes)
+                td = conv.launch_tile(shape, True, act == "elu", lanes)
                 out_t = conv._launch_lanes(x, w, b, act, tile=tf)
                 dx_t, gp_t = conv._launch_dx_lanes(g, out_t, w, act, tile=td)
                 for i in range(lanes):
@@ -1494,6 +1564,7 @@ def lane_kernel_times(torch, conv, shapes, card):
     for lanes in LANES:
         sums = {m: dict.fromkeys(("ms", "serial_ms", "library_ms",
                                   "bound_ms"), 0.0) for m in ("fwd", "dx")}
+        wins = []
         for shape in shapes:
             x, w, b, g = bench.lane_inputs(torch, shape, lanes, gen)
             xg, wg, bg, gg, wa = bench.grouped_layouts(x, w, b, g)
@@ -1516,11 +1587,19 @@ def lane_kernel_times(torch, conv, shapes, card):
                     check(t is not None, f"L={lanes} {shape} {mode}: the "
                           f"profiler saw no device time")
                     s = sums[mode]
+                    if t[2] < (t[0] + t[3]) / 2:
+                        wins.append((shape, mode,
+                                     (t[0] + t[3]) / 2 / t[2]))
                     s["ms"] += (t[0] + t[3]) / 2
                     s["serial_ms"] += t[1]
                     s["library_ms"] += t[2]
                     s["bound_ms"] += lanes * bench.bound(shape,
                                                          mode == "dx")[0]
+        count_families(conv, f"10 L={lanes}", shapes, lanes=lanes)
+        print(f"  L = {lanes}: cuDNN grouped faster at {len(wins)} of "
+              f"{2 * len(shapes)} (shape, mode) cases"
+              + (": " + "; ".join(f"{t} {m} {f:.2f}x" for t, m, f in wins)
+                 if wins else ""))
         for mode, s in sums.items():
             print(f"  L = {lanes} {mode} summed over {len(shapes)} shapes: "
                   f"lane mode {s['ms']:.4f} ms, {lanes} one-lane launches "
@@ -1902,13 +1981,20 @@ def programs_trace(torch, conv, data):
     before, warm = conv.LAUNCHES, conv.WARMUP_LAUNCHES
     _, wall, events = device_events(torch, epoch)
     delta = conv.LAUNCHES - before
-    n_conv = sum("conv3x3_mma_kernel" in e.name for e in events)
+    convs = [e for e in events if is_conv_kernel(e.name)]
+    n_conv = len(convs)
     check(conv.WARMUP_LAUNCHES == warm and n_conv == delta and delta > 0,
           f"(b) profiled epoch: {n_conv} conv kernel events, counter delta "
           f"{delta}, warm-up launches {conv.WARMUP_LAUNCHES - warm}")
+    busy = sum(e.time_range.elapsed_us() for e in events)
+    kern = sum(e.time_range.elapsed_us() for e in convs)
+    share = kern / busy
     print(f"  (b) one profiled epoch (a replay): {n_conv} conv kernel device "
           f"events = the counter's delta {delta}; {len(events)} device "
-          f"events in {wall * 1e3:.1f} ms")
+          f"events in {wall * 1e3:.1f} ms; the conv kernel takes "
+          f"{kern / 1e3:.4f} of the epoch's {busy / 1e3:.4f} device ms "
+          f"({share:.1%}; the epoch is its lane steps and one val forward)")
+    return share
 
 
 def programs_turns(torch, conv, card, data, since):
@@ -2007,8 +2093,9 @@ def programs_path(torch, conv, card):
     with deterministic_cudnn():
         data = programs_bits(torch, conv, card)
         print(f"  (a) took {time.perf_counter() - t0:.1f} s")
-        programs_trace(torch, conv, data)
+        share = programs_trace(torch, conv, data)
         nums = programs_turns(torch, conv, card, data, since)
+        nums["kernel_share"] = share
     print(f"  phase 14 wall {time.perf_counter() - t0:.2f} s")
     return nums
 
@@ -2077,7 +2164,7 @@ def grid_kernels(torch, conv, card):
 
     print(f"  device time per launch at the {len(train)} training shapes "
           f"(kernel and cuDNN in turns; on {card})")
-    sums, per = kernel_times(torch, conv, train)
+    sums, per = kernel_times(torch, conv, train, phase="11")
     for fam in families.values():
         name = (f"grid family {'+'.join(fam['configs'])} "
                 f"({fam['train'][0][1]}x{fam['train'][0][2]})")
@@ -2085,11 +2172,6 @@ def grid_kernels(torch, conv, card):
                      for k in sums[m]} for m in sums}
         print_sums(name, len(fam["train"]), fsums)
     print_sums("all grid shapes", len(train), sums)
-    wins = [(t, m, per[t][m]["ms"] / per[t][m]["library_ms"])
-            for t in train for m in ("fwd", "dx")
-            if per[t][m]["library_ms"] < per[t][m]["ms"]]
-    print(f"  cuDNN faster at {len(wins)} of {2 * len(train)} (shape, mode) "
-          f"cases: " + "; ".join(f"{t} {m} {f:.2f}x" for t, m, f in wins))
     return max_abs, sums, len(train), len(evals)
 
 
@@ -2260,8 +2342,9 @@ def member_kernels(torch, conv, card):
                                            backward=False, acts=("elu",)))
     print(f"  max abs err {max_abs:.3e}; device time per launch (kernel and "
           f"cuDNN in turns; on {card})")
-    tsums, per = kernel_times(torch, conv, first)
-    esums, eper = kernel_times(torch, conv, evals, modes=("fwd",))
+    tsums, per = kernel_times(torch, conv, first, phase="12")
+    esums, eper = kernel_times(torch, conv, evals, modes=("fwd",),
+                               phase="12")
     print_sums("multi_predictor first convs", len(first), tsums)
     print_sums("eval shapes", len(evals), esums)
     print("  kernel / cuDNN per shape: " + "; ".join(
@@ -2963,6 +3046,52 @@ def elr_cuda_vs_cpu(torch):
     return out
 
 
+def check_sass(conv, build, path):
+    """Phase 2: the built library's SASS (cuobjdump -sass from the
+    toolkit) holds the halo tiles' wgmma (HGMMA) and TMA loads (UTMALDG),
+    and the split tiles' cluster barriers; prints how many kernels hold
+    each."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=600)
+    check(out.returncode == 0, f"cuobjdump -sass failed: {out.stderr[-400:]}")
+    kernels = out.stdout.split("Function : ")[1:]
+    want = {"UTMALDG": conv.HALO in {t[0] for t in conv.TILES}
+            or conv.HALO_MMA in {t[0] for t in conv.TILES},
+            "HGMMA": conv.HALO in {t[0] for t in conv.TILES},
+            "UCGABAR": False}         # printed, not required
+    found = {op: sum(op in k for k in kernels) for op in want}
+    print(f"  SASS: {len(kernels)} kernels; holding HGMMA "
+          f"{found['HGMMA']}, UTMALDG {found['UTMALDG']}, cluster barrier "
+          f"(UCGABAR) {found['UCGABAR']}")
+    for op, needed in want.items():
+        check(not needed or found[op] > 0,
+              f"the library's SASS holds no {op} instruction")
+
+
+def timed_shapes(torch, device="cuda"):
+    """The shapes phases 3, 10, 11 and 12 time, each once: [(shape, act,
+    modes)] (phase 10's are phase 3's; phase 12's eval shapes forward
+    only)."""
+    out = {}
+
+    def add(shapes, act, modes=("fwd", "dx")):
+        for s in shapes:
+            have = out.setdefault((tuple(s), act), [])
+            have += [m for m in modes if m not in have]
+    add(bench.slice_shapes(torch, (2, 3), BATCH, device), "elu")
+    add(CNN_SHAPES, "none")
+    add(MULTI_SHAPES, "elu")
+    add(bench.slice_shapes(torch, (2,), RT_ROWS, device), "elu")
+    add([(RT_ROWS,) + s[1:] for s in CNN_SHAPES], "none")
+    for cfg in suite_configs():
+        add(bench.config_shapes(torch, cfg, device)[0], "elu")
+    first, multi, stacked = member_shapes(torch, device)
+    add(first, "elu")
+    add(multi + stacked, "elu", ("fwd",))
+    return [(s, a, tuple(m)) for (s, a), m in out.items()]
+
+
 def main(argv=None):
     global bench
     import argparse
@@ -2970,6 +3099,9 @@ def main(argv=None):
     ap.add_argument("--write-expected", metavar="PATH", default=None,
                     help="only run phase 11's suite twice and write the "
                          "port's suite --check file to PATH")
+    ap.add_argument("--shapes-json", metavar="PATH", default=None,
+                    help="only write the shapes phases 3, 10, 11 and 12 "
+                         "time (for `conv_bench tiles --shapes`) to PATH")
     ap.add_argument("--write-depth", metavar="PATH", default=None,
                     help="only run phase 13's (a) twice and write its "
                          "expectations file to PATH")
@@ -3004,6 +3136,15 @@ def main(argv=None):
               f"tile table / K chunk of the library {conv.kernel_tiles()} / "
               f"{conv.kernel_chunk()} differ from the wrapper's "
               f"{conv.TILES} / {conv._BK}")
+        check_sass(conv, _build, info["path"])
+        if args.shapes_json:
+            shapes = timed_shapes(torch)
+            with open(args.shapes_json, "w") as fh:
+                json.dump([{"shape": s, "act": a, "modes": m}
+                           for s, a, m in shapes], fh)
+            print(f"  wrote the {len(shapes)} shapes phases 3, 10, 11 and "
+                  f"12 time to {args.shapes_json}")
+            return 0
         if args.write_expected:
             print(f"[11/14] (b) only: the suite twice -> "
                   f"{args.write_expected}")
@@ -3043,7 +3184,7 @@ def main(argv=None):
         for name, group, act in groups:
             print(f"  device time per launch at the {len(group)} {name} "
                   f"shapes (kernel and cuDNN in turns; on {card})")
-            sums, _ = kernel_times(torch, conv, group, act)
+            sums, _ = kernel_times(torch, conv, group, act, phase="3")
             print_sums(name, len(group), sums)
             for mode, s in sums.items():
                 for key, v in s.items():
@@ -3195,7 +3336,8 @@ def main(argv=None):
                                       ("first_dx_", iitm_train, "dx"))
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "iitm_launches": iitm_launches,
-        "depth_launches": depth_launches, **memo}]}))
+        "depth_launches": depth_launches, **memo,
+        "families": FAMILY_COUNTS}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

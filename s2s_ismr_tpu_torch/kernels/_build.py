@@ -85,7 +85,7 @@ def library() -> ctypes.CDLL:
         lib.s2s_conv3x3_f32.argtypes = [vp] * 6 + [ci] * 9 + [cl] * 6 + [vp]
         lib.s2s_conv3x3_f32.restype = ci
         pi = ctypes.POINTER(ci)
-        lib.s2s_conv3x3_tile.argtypes = [ci, pi, pi, pi, pi]
+        lib.s2s_conv3x3_tile.argtypes = [ci] + [pi] * 6
         lib.s2s_conv3x3_tile.restype = ci
         lib.s2s_conv3x3_chunk.argtypes = []
         lib.s2s_conv3x3_chunk.restype = ci

@@ -27,6 +27,16 @@ of launches per step as one lane does. dw and db stay torch ops, which
 vmap turns into batched products. Only one level of vmap is batched into
 the kernel (the sweep flattens folds x learning rates into one lane axis).
 
+Tiles: the kernel has three tile families (csrc/conv3x3.cu): gather
+(an implicit GEMM, A gathered per tap), halo (a block's image rows and
+their halo, at most 16-32 channels, staged once, by TMA where the staged
+channel count is a multiple of 4; wgmma products, or mma.sync in the
+halo_mma tiles) and split (a cluster of blocks splitting K, reduced in rank order
+through distributed shared memory). `_pick_tile` takes the tile of least
+modelled time (`tile_cost`, constants fitted per family by `conv_bench
+fit`) among those whose preconditions hold (`applicable`). Every family is
+one launch per call.
+
 Dispatch: on a CPU tensor the inner calls are the plain versions
 (`conv3x3_bias_act_plain`, `conv3x3_dx_plain`, and for lanes
 `conv3x3_bias_act_lanes_plain`, `conv3x3_dx_lanes_plain`, loops over
@@ -59,48 +69,144 @@ _MAX_SIDE = 16384
 MAX_PIXELS = 2_000_000      # N*H*W: the kernel's fdiv and 32-bit indices
 _ACTS = ("elu", "none")
 
-# The kernel's tile table (csrc/conv3x3.cu, kTiles): (BM, BN, WM, WN), a
-# BM x BN output tile per block of 4 warps, WM x WN warps over the tile and
-# the remaining 4 / (WM * WN) warps splitting each K chunk.
-TILES = ((64, 8, 4, 1), (32, 8, 2, 1), (16, 8, 1, 1), (128, 16, 4, 1),
-         (64, 16, 4, 1), (32, 16, 2, 1), (16, 16, 1, 1), (64, 32, 2, 2),
-         (32, 32, 2, 1), (16, 32, 1, 1))
+# The kernel's tile table (csrc/conv3x3.cu, kTiles): (family, BM, BN, WM,
+# WN, S). gather: a BM x BN output tile per block of 4 warps, WM x WN warps
+# over the tile and the remaining 4 / (WM * WN) warps splitting each K
+# chunk; halo (wgmma products) and halo_mma (mma.sync products): BM GEMM
+# rows per block, R = min(BM // W, H) whole image rows of one image, their
+# halo box (at most halo_ck(BN) channels) staged once; split: the gather
+# tile over a cluster of S blocks, each walking 1/S of the K chunks.
+FAMILIES = ("gather", "halo", "halo_mma", "split")
+GATHER, HALO, HALO_MMA, SPLIT = range(4)
+TILES = ((0, 64, 8, 4, 1, 1), (0, 16, 8, 1, 1, 1), (0, 64, 16, 4, 1, 1),
+         (0, 32, 16, 2, 1, 1), (0, 16, 16, 1, 1, 1), (0, 64, 32, 2, 2, 1),
+         (0, 32, 32, 2, 1, 1), (0, 16, 32, 1, 1, 1),
+         (1, 64, 8, 4, 1, 1), (1, 64, 16, 4, 1, 1), (1, 128, 8, 4, 1, 1),
+         (1, 128, 16, 4, 1, 1), (1, 64, 32, 4, 1, 1),
+         (2, 128, 8, 4, 1, 1), (2, 128, 16, 4, 1, 1),
+         (3, 16, 32, 1, 1, 4), (3, 16, 32, 1, 1, 8))
 _SMS = 132          # H100 SXM
-_BK = 64            # k values per chunk (csrc/conv3x3.cu, kBK)
-# (fixed us, us per chunk, us per mma of a warp per chunk, us per MB that
-# the A gathers read): fitted by `conv_bench fit` to a `conv_bench tiles`
-# sweep of every tile at the 22 slice shapes (NVIDIA H100 80GB HBM3,
-# 700 W; PERF.md, PR 3)
-COST = (3.97, 0.1138, 0.0214, 0.186)
+_BK = 64            # k values per gather chunk (csrc/conv3x3.cu, kBK)
+HALO_SMEM = 200 * 1024    # a halo tile's dynamic shared memory, at most
+SPLIT_MAX_M, SPLIT_MIN_K = 128, 576
+# per family: (fixed us, us per chunk, us per mma of a warp per chunk, us
+# per MB that the A loads read, and for a halo tile us per k8 step and
+# 64-row slice of A fragments, for a split tile us per cluster rank);
+# fitted by `conv_bench fit` to a `conv_bench tiles` sweep of every tile
+# at the 245 shapes that chip_smoke.py's phases 3, 10, 11 and 12 time
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md), each family over the
+# times of the tiles it takes. The split tiles share the gather tiles' mma
+# and byte rates (the same body).
+COST = {GATHER: (5.6587, 0.1255, 0.0168, 0.0791),
+        HALO: (4.7567, 0.7634, 0.011, 0.0189, 0.0425),
+        HALO_MMA: (5.2714, 0.8052, 0.011, 0.0, 0.0332),
+        SPLIT: (4.1572, 0.4016, 0.0168, 0.0791, 0.0)}
 
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
-def tile_cost(tile, m, n, k, a_streams=1, cost=COST, lanes=1):
-    """Modelled device us of one launch with `tile` for the (m x k) @
-    (k x n) GEMM: a fixed part, plus the K chunks of one block, each a
-    fixed part and its warps' mma (3 per m16n8k8 step), stretched by the
-    waves of blocks past one per SM, plus the bytes the A gathers read
-    (every n tile reads A again; the dx mode of an ELU conv reads g and
-    the saved output, a_streams = 2). A lane-mode launch of `lanes` lanes
+def halo_ck(bn):
+    """Staged channels a halo tile takes, at most (csrc: halo_ck)."""
+    return 16 if bn >= 32 else 32
+
+
+def halo_rows(tile, h, w):
+    """R: the image rows a halo tile's block owns at an H x W map."""
+    return min(tile[1] // w, h)
+
+
+def halo_box(tile, shape):
+    """(channel stride, W + 2, R + 2, TMA) of a halo tile's staged box at
+    shape (N, H, W, Cin, Cout), Cin the staged channels. TMA where Cin is
+    a multiple of 4 (the kernel also needs the tensors on 16-byte
+    boundaries, else it stages by cp.async): the box's channel extent is
+    Cin + 4, its pad read as zeros and unused; by cp.async the stride is
+    Cin made odd. Either way the taps read shared memory without bank
+    conflicts."""
+    _, h, w, cst, _ = shape
+    tma = cst % 4 == 0
+    return (cst + 4 if tma else cst | 1), w + 2, halo_rows(tile, h, w) + 2, tma
+
+
+def halo_smem(tile, shape, has_o=False):
+    """Dynamic shared memory bytes of a halo tile at shape (N, H, W, Cin,
+    Cout) (and the saved output's box beside the input's when has_o): the
+    B hi and lo tiles (BN x 9 Cin, rounded up to 8) and the (R+2) x (W+2)
+    box, as the kernel sizes them."""
+    cs, bw, bh, _ = halo_box(tile, shape)
+    box = _cdiv(bh * bw * cs, 32) * 32
+    return 128 + 4 * (2 * tile[2] * _cdiv(9 * shape[3], 8) * 8
+                      + box * (2 if has_o else 1))
+
+
+def applicable(tile, shape, a_streams=1):
+    """Whether the kernel takes `tile` at shape (N, H, W, Cin, Cout), Cin
+    the staged (reduced) channels: a halo tile needs 8 <= W <= BM, Cin <=
+    halo_ck(BN) (measured: over several channel chunks a halo tile lost to
+    the gather tiles at every one of the 63 shapes it could take; PERF.md)
+    and its box within HALO_SMEM; a split tile M <= 128, K >= 576
+    and no more ranks than K chunks (the kernel refuses the rest)."""
+    fam, bm = tile[0], tile[1]
+    n, h, w, cst, _ = shape
+    if fam in (HALO, HALO_MMA):
+        return (8 <= w <= bm and cst <= halo_ck(tile[2])
+                and halo_smem(tile, shape, a_streams == 2) <= HALO_SMEM)
+    if fam == SPLIT:
+        k = 9 * cst
+        return (n * h * w <= SPLIT_MAX_M and k >= SPLIT_MIN_K
+                and tile[5] <= _cdiv(k, _BK))
+    return True
+
+
+def tile_cost(tile, shape, a_streams=1, cost=None, lanes=1):
+    """Modelled device us of one launch with `tile` at shape (N, H, W,
+    Cin, Cout), Cin the staged (reduced) channels, Cout the output's: a
+    fixed part, plus the K chunks of one block, each a fixed part and its
+    warps' mma (3 per m16n8k8 step), stretched by the waves of blocks past
+    one per SM, plus the bytes the A loads read. A gather tile reads A
+    once per tap and n tile (a_streams = 2: the dx mode of an ELU conv
+    also reads the saved output); a halo tile once per staged pixel of its
+    (R+2) x (W+2) box and n tile; a split tile walks 1/S of the chunks and
+    pays per rank of the reduction. A lane-mode launch of `lanes` lanes
     has `lanes` times the blocks and the bytes."""
-    fixed, per_chunk, per_mma, per_mb = cost
-    bm, bn, wm, wn = tile
+    fam, bm, bn, wm, wn, s = tile
+    cost = COST[fam] if cost is None else cost
+    fixed, per_chunk, per_mma, per_mb = cost[:4]
+    n, h, w, cst, cout = shape
+    m, k, nt = n * h * w, 9 * cst, _cdiv(cout, bn)
+    if fam in (HALO, HALO_MMA):
+        r = halo_rows(tile, h, w)
+        chunks = 1                  # the box holds all Cin <= halo_ck(BN)
+        steps = _cdiv(9 * cst, 8)
+        mma = steps * (bm // 64) * (bn // 8) * 3
+        row_blocks = n * _cdiv(h, r)
+        blocks = row_blocks * nt * lanes
+        waves = max(1.0, blocks / _SMS)
+        mb = lanes * (nt * row_blocks * (r + 2) * (w + 2) * cst * a_streams
+                      + m * cout) * 4 / 1e6
+        # per k8 step and 64-row slice, the A fragment each thread builds
+        # from the box, whatever the tile's width
+        frag = cost[4] * steps * (bm // 64)
+        return fixed + waves * (chunks * per_chunk + per_mma * mma + frag) \
+            + per_mb * mb
     ks = 4 // (wm * wn)
     mma = _cdiv(_BK // 8, ks) * (bm // wm // 16) * (bn // wn // 8) * 3
-    blocks = _cdiv(m, bm) * _cdiv(n, bn) * lanes
+    blocks = _cdiv(m, bm) * nt * lanes * s
     waves = max(1.0, blocks / _SMS)
-    mb = lanes * (_cdiv(n, bn) * m * k * a_streams + m * n) * 4 / 1e6
-    return (fixed + waves * _cdiv(k, _BK) * (per_chunk + per_mma * mma)
-            + per_mb * mb)
+    mb = lanes * (nt * m * k * a_streams + m * cout) * 4 / 1e6
+    t = (fixed + waves * _cdiv(_cdiv(k, _BK), s) * (per_chunk + per_mma * mma)
+         + per_mb * mb)
+    if fam == SPLIT:
+        t += cost[4] * s
+    return t
 
 
 def kernel_tiles():
     """The tile table as the built library holds it; equals TILES."""
     lib = _build.library()
-    vals = [ctypes.c_int() for _ in range(4)]
+    vals = [ctypes.c_int() for _ in range(6)]
     count = lib.s2s_conv3x3_tile(-1, *map(ctypes.byref, vals))
     tiles = []
     for i in range(count):
@@ -115,12 +221,24 @@ def kernel_chunk():
 
 
 @functools.lru_cache(maxsize=None)
-def _pick_tile(m, n, k, a_streams=1, lanes=1):
-    """The tile of the least modelled time (tile_cost); ties go to the
-    earlier tile. Cached: a model has a few shapes and launches each many
-    times."""
-    costs = [tile_cost(t, m, n, k, a_streams, lanes=lanes) for t in TILES]
+def _pick_tile(shape, a_streams=1, lanes=1):
+    """The tile of the least modelled time (tile_cost) among those the
+    kernel takes at shape (N, H, W, Cin, Cout), Cin the staged channels;
+    ties go to the earlier tile. Cached: a model has a few shapes and
+    launches each many times."""
+    costs = [tile_cost(t, shape, a_streams, lanes=lanes)
+             if applicable(t, shape, a_streams) else float("inf")
+             for t in TILES]
     return costs.index(min(costs))
+
+
+def launch_tile(shape, dx=False, elu=True, lanes=1):
+    """The tile the wrapper launches for the conv of shape (N, H, W, C, O)
+    (the forward's names) in the forward or the dx mode."""
+    n, h, w, c, o = shape
+    if dx:
+        return _pick_tile((n, h, w, o, c), 2 if elu else 1, lanes)
+    return _pick_tile((n, h, w, c, o), 1, lanes)
 
 
 def conv3x3_bias_act_plain(x, w, b, act="elu"):
@@ -264,8 +382,8 @@ def _run(a, act_out, w, b, y, gp, dims, dx_mode, elu, tile, lanes=1):
     lane's. Each operand has a lane dim, or is shared by the lanes."""
     n, h, wd, cin, cout = dims
     if tile is None:
-        tile = _pick_tile(n * h * wd, cout, 9 * cin,
-                          2 if dx_mode and elu else 1, lanes)
+        tile = _pick_tile((n, h, wd, cin, cout), 2 if dx_mode and elu else 1,
+                          lanes)
     strides = (_lane_stride(a, 4), _lane_stride(act_out, 4),
                _lane_stride(w, 4), _lane_stride(b, 1), _lane_stride(y, 4),
                _lane_stride(gp, 4))

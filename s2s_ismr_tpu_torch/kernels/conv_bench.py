@@ -1,22 +1,28 @@
 """On-card measurements of the conv3x3 kernel (csrc/conv3x3.cu). Needs a
 CUDA card; prints its results and writes them as JSON under `--out`.
 
-    python -m s2s_ismr_tpu_torch.kernels.conv_bench check
-        every tile of the kernel's table, forward and dx mode, both acts,
-        against the float64 plain version (rtol 1e-4 / atol 1e-5) at the
-        slice's extreme shapes and the edge shapes, and bit-equal repeats;
-    python -m s2s_ismr_tpu_torch.kernels.conv_bench lanes
-        the lane mode: every tile at the slice's extreme shapes for 4 and
-        20 lanes, forward and dx mode, both acts, against the float64 plain
-        lane version, and every lane bit-equal to a one-lane launch of it
-        with the same tile;
-    python -m s2s_ismr_tpu_torch.kernels.conv_bench tiles
-        device time of every tile at every slice shape (batch 16), forward
-        and dx mode (ELU), beside the tile the wrapper picks;
+    python -m s2s_ismr_tpu_torch.kernels.conv_bench check [--tile T ...]
+            [--shape N H W C O ...]
+        every tile of the kernel's table (or the tiles named), forward and
+        dx mode, both acts, against the float64 plain version (rtol 1e-4 /
+        atol 1e-5) at the slice's extreme shapes, the edge shapes and the
+        families' cases (or the shapes named), wherever the tile takes the
+        shape, and bit-equal repeats;
+    python -m s2s_ismr_tpu_torch.kernels.conv_bench lanes [--tile T ...]
+        the lane mode: every tile at the slice's extreme shapes and two
+        bottlenecks for 4 and 20 lanes, forward and dx mode, both acts,
+        against the float64 plain lane version, and every lane bit-equal
+        to a one-lane launch of it with the same tile;
+    python -m s2s_ismr_tpu_torch.kernels.conv_bench tiles [--shapes JSON]
+        device time of every tile at every slice shape (batch 16), or at
+        the shapes of a JSON list (`chip_smoke.py --shapes-json` writes the
+        shapes phases 3, 10, 11 and 12 time), forward and dx mode, wherever
+        the tile takes the shape, beside the tile the wrapper picks;
     python -m s2s_ismr_tpu_torch.kernels.conv_bench fit TILES_JSON
-        fits the constants of the wrapper's tile cost model (conv.COST) to
-        a `tiles` sweep by least squares on log time, and prints them with
-        the times its picks would take (runs on the CPU);
+        fits each family's constants of the wrapper's tile cost model
+        (conv.COST) to a `tiles` sweep by least squares on log time, and
+        prints them with the times its picks would take and the tiles it
+        picks at no shape (runs on the CPU);
     python -m s2s_ismr_tpu_torch.kernels.conv_bench step [--backend B]
         one lane of the tune_ECMWF_com fast sweep (fold 0, trial 0) under
         torch.profiler: device ops, device busy time and kernel launches
@@ -33,7 +39,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import sys
 import time
 
@@ -235,23 +240,41 @@ def excess(got, want):
     return float(d.max()), float((d - (ATOL + RTOL * want.abs())).max())
 
 
+def takes(conv, tile, shape, dx=False, elu=True):
+    """Whether the kernel takes tile index `tile` (None: the wrapper's
+    pick) for the conv of shape (N, H, W, C, O) in the forward or the dx
+    mode."""
+    if tile is None:
+        return True
+    n, h, w, c, o = shape
+    ks = (n, h, w, o, c) if dx else shape
+    return conv.applicable(conv.TILES[tile], ks, 2 if dx and elu else 1)
+
+
 def check_tile(torch, conv, shape, tile, gen):
-    """The kernel with `tile` against the float64 plain version: forward
-    (both acts), dx mode (dx and g', both acts); each launch twice, which
+    """The kernel with `tile` (None: the wrapper's pick) against the
+    float64 plain version: forward (both acts), dx mode (dx and g', both
+    acts), each where the tile takes the shape; each launch twice, which
     must be bit-equal. Returns {case: max abs err} or raises."""
     x, k, b, g = inputs(torch, shape, gen)
     errs = {}
     for act in ("elu", "none"):
         want = conv.conv3x3_bias_act_plain(x.double(), k.double(),
                                            b.double(), act)
-        outs = [conv._launch(x, k, b, act, tile=tile) for _ in range(2)]
-        ea, ex = excess(outs[0], want)
-        if ex > 0 or not torch.equal(outs[0], outs[1]):
-            raise AssertionError(f"tile {tile} fwd {act} {shape}: err {ea:.3e}"
-                                 f", repeat equal {torch.equal(*outs)}")
-        errs[f"fwd_{act}"] = ea
+        if takes(conv, tile, shape):
+            outs = [conv._launch(x, k, b, act, tile=tile) for _ in range(2)]
+            ea, ex = excess(outs[0], want)
+            if ex > 0 or not torch.equal(outs[0], outs[1]):
+                raise AssertionError(
+                    f"tile {tile} fwd {act} {shape}: err {ea:.3e}, repeat "
+                    f"equal {torch.equal(*outs)}")
+            errs[f"fwd_{act}"] = ea
+            out = outs[0]
+        else:
+            out = conv._launch(x, k, b, act)
+        if not takes(conv, tile, shape, True, act == "elu"):
+            continue
         # the dx mode reads the kernel's own f32 output as the saved output
-        out = outs[0]
         dx_w, gp_w = conv.conv3x3_dx_plain(g.double(), out.double(),
                                            k.double(), act)
         runs = [conv._launch_dx(g, out, k, act, tile=tile) for _ in range(2)]
@@ -266,35 +289,60 @@ def check_tile(torch, conv, shape, tile, gen):
     return errs
 
 
-def run_check(torch, conv, out_dir):
-    gen = torch.Generator(device="cuda").manual_seed(0)
+# beside the slice's extremes and the edge shapes, the families' cases:
+# halo tiles on 64-, 24- (ragged rows) and 12-wide maps, split tiles at the
+# deep bottlenecks
+FAMILY_SHAPES = ((16, 64, 64, 16, 8), (32, 24, 24, 16, 8),
+                 (16, 12, 12, 12, 24), (16, 1, 1, 384, 384),
+                 (16, 2, 2, 192, 384), (32, 2, 2, 128, 128))
+
+
+def check_picks(torch):
+    """The shapes `check` and `lanes` run: the slice's extremes (C = 1,
+    the widest 4x4 and 8x8 layers, 32x32), the edge shapes and the
+    families' cases."""
     shapes = slice_shapes(torch)
-    # the slice's extremes: C = 1, the widest 4x4 and 8x8 layers, 32x32
-    picks = [shapes[0], (16, 4, 4, 96, 96), (16, 8, 8, 96, 48),
-             (16, 32, 32, 24, 12)] + list(EDGE_SHAPES)
-    worst = 0.0
-    for tile in range(len(conv.TILES)):
+    return ([shapes[0], (16, 4, 4, 96, 96), (16, 8, 8, 96, 48),
+             (16, 32, 32, 24, 12)] + list(EDGE_SHAPES) + list(FAMILY_SHAPES))
+
+
+def run_check(torch, conv, out_dir, tiles=None, shapes=None):
+    """Every tile (or `tiles`) at every pick (or `shapes`) it takes."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    picks = shapes or check_picks(torch)
+    tiles = range(len(conv.TILES)) if tiles is None else tiles
+    worst, cases = 0.0, 0
+    for tile in tiles:
         for shape in picks:
             errs = check_tile(torch, conv, shape, tile, gen)
+            if not errs:
+                continue
+            cases += len(errs)
             worst = max(worst, *errs.values())
             print(f"  tile {tile} {conv.TILES[tile]} {shape}: " + " ".join(
                 f"{k} {v:.1e}" for k, v in errs.items()), flush=True)
     torch.cuda.synchronize()
-    print(f"check: {len(conv.TILES)} tiles x {len(picks)} shapes, fwd/dx/g' "
-          f"x elu/none within rtol {RTOL} / atol {ATOL} of float64, repeats "
-          f"bit-equal; max abs err {worst:.3e}")
-    return {"max_abs_err": worst}
+    print(f"check: {len(tiles)} tiles x {len(picks)} shapes where each "
+          f"tile takes them ({cases} cases), fwd/dx/g' x elu/none within "
+          f"rtol {RTOL} / atol {ATOL} of float64, repeats bit-equal; max "
+          f"abs err {worst:.3e}")
+    return {"max_abs_err": worst, "cases": cases}
 
 
-def run_lanes(torch, conv, out_dir, lane_counts=(4, 20)):
+def run_lanes(torch, conv, out_dir, lane_counts=(4, 20), tiles=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = slice_shapes(torch)
     picks = [shapes[0], (16, 4, 4, 96, 96), (16, 32, 32, 24, 12),
-             EDGE_SHAPES[1]]
+             EDGE_SHAPES[1], (16, 1, 1, 384, 384), (16, 2, 2, 192, 384)]
+    tiles = range(len(conv.TILES)) if tiles is None else tiles
     worst = 0.0
     for lanes in lane_counts:
-        for tile in range(len(conv.TILES)):
+        for tile in tiles:
             for shape in picks:
+                if not (takes(conv, tile, shape)
+                        and takes(conv, tile, shape, True, False)
+                        and takes(conv, tile, shape, True, True)):
+                    continue
                 x, w, b, g = lane_inputs(torch, shape, lanes, gen)
                 for act in ("elu", "none"):
                     out = conv._launch_lanes(x, w, b, act, tile=tile)
@@ -325,22 +373,98 @@ def run_lanes(torch, conv, out_dir, lane_counts=(4, 20)):
             print(f"  L={lanes} tile {tile} {conv.TILES[tile]}: "
                   f"{len(picks)} shapes ok", flush=True)
     torch.cuda.synchronize()
-    print(f"lanes: L {lane_counts} x {len(conv.TILES)} tiles x {len(picks)} "
-          f"shapes, fwd/dx/g' x elu/none within rtol {RTOL} / atol {ATOL} "
+    print(f"lanes: L {lane_counts} x {len(tiles)} tiles x {len(picks)} "
+          f"shapes where each tile takes both modes, fwd/dx/g' x elu/none "
+          f"within rtol {RTOL} / atol {ATOL} "
           f"of float64, every lane bit-equal to its one-lane launch; max abs "
           f"err {worst:.3e}")
     return {"max_abs_err": worst}
 
 
-def gemms(shape):
-    """{mode: (m, n, k, A streams)} of the main path's launches at a conv
-    shape: the forward, and the dx mode of an ELU conv."""
+def kernel_shape(shape, mode, act="elu"):
+    """(the kernel's shape (N, H, W, staged C, output C), A streams) of
+    the launch of `mode` ('fwd' or 'dx') at a conv shape (N, H, W, C, O):
+    the forward stages x; the dx mode stages g (and the saved output for
+    ELU)."""
     n, h, w, c, o = shape
-    return {"fwd": (n * h * w, o, 9 * c, 1), "dx": (n * h * w, c, 9 * o, 2)}
+    if mode == "fwd":
+        return (n, h, w, c, o), 1
+    return (n, h, w, o, c), 2 if act == "elu" else 1
+
+
+def read_shapes(path):
+    """[(shape, act, modes)] from a JSON list of {"shape", "act",
+    "modes"} (chip_smoke.py --shapes-json writes one)."""
+    with open(path) as fh:
+        return [(tuple(e["shape"]), e["act"], tuple(e["modes"]))
+                for e in json.load(fh)]
+
+
+def family_summary(conv, sweep, tiles):
+    """Prints, from a tiles sweep, each family's best tile summed over the
+    (shape, mode) cases it takes against the gather family's best at the
+    same cases, the halo tiles' wgmma body against their mma.sync body
+    (halo_mma) where both take a case, and how many cases cuDNN wins
+    against each family's best."""
+    import collections
+    best = collections.defaultdict(dict)      # (shape, mode) -> family -> us
+    lib = {}
+    for r in sweep["rows"]:
+        for mode in ("fwd", "dx"):
+            if mode not in r:
+                continue
+            key = (tuple(r["shape"]), mode)
+            lib[key] = r[mode].get("cudnn_us")
+            for t, us in r[mode]["us"]:
+                fam = conv.FAMILIES[tiles[t][0]]
+                best[key][fam] = min(us, best[key].get(fam, us))
+    for mode in ("fwd", "dx"):
+        for fam in conv.FAMILIES[1:]:
+            keys = [k for k in best if k[1] == mode and fam in best[k]]
+            if keys:
+                own = sum(best[k][fam] for k in keys)
+                gat = sum(best[k]["gather"] for k in keys)
+                wins = sum(best[k][fam] < best[k]["gather"] for k in keys)
+                print(f"fit: {mode} {fam}: best tile {own:.2f} us against "
+                      f"gather's best {gat:.2f} us over its {len(keys)} "
+                      f"cases, faster at {wins}")
+    # the same halo tile with either body, case by case
+    for t, tile in enumerate(tiles):
+        if tile[0] != conv.HALO:
+            continue
+        twin = (conv.HALO_MMA,) + tile[1:]
+        if twin not in tiles:
+            continue
+        u = tiles.index(twin)
+        pairs = [(dict(r[m]["us"])[t], dict(r[m]["us"])[u])
+                 for r in sweep["rows"] for m in ("fwd", "dx")
+                 if m in r and t in dict(r[m]["us"])]
+        print(f"fit: halo tile {tile[1:3]}, wgmma against mma.sync at its "
+              f"{len(pairs)} cases: wgmma faster at "
+              f"{sum(a < b for a, b in pairs)}; summed "
+              f"{sum(a for a, _ in pairs):.2f} against "
+              f"{sum(b for _, b in pairs):.2f} us")
+    both = [k for k in best if "halo" in best[k] and "halo_mma" in best[k]]
+    if both:
+        wg = sum(best[k]["halo"] < best[k]["halo_mma"] for k in both)
+        print(f"fit: the best wgmma against the best mma.sync halo tile at "
+              f"the {len(both)} cases both take: wgmma faster at {wg}; "
+              f"summed {sum(best[k]['halo'] for k in both):.2f} against "
+              f"{sum(best[k]['halo_mma'] for k in both):.2f} us")
+    if all(v is not None for v in lib.values()):
+        for fam in conv.FAMILIES:
+            keys = [k for k in best if fam in best[k]]
+            lost = [k for k in keys if lib[k] < best[k][fam]]
+            print(f"fit: cuDNN faster than {fam}'s best at {len(lost)} of "
+                  f"{len(keys)} cases")
 
 
 def run_fit(path):
-    """Least-squares fit of conv.COST on log time to a tiles sweep."""
+    """Least-squares fit of each family's conv.COST on log time to a tiles
+    sweep, over the times of the tiles the kernel takes (conv.applicable:
+    a sweep of an older table may hold times the kernel now refuses);
+    prints the fitted picks' sums against the best per shape, and the
+    tiles the fitted picker takes at no shape."""
     import numpy as np
     from scipy.optimize import minimize
 
@@ -348,43 +472,80 @@ def run_fit(path):
     with open(path) as fh:
         sweep = json.load(fh)["result"]
     tiles = [tuple(t) for t in sweep["tiles"]]
-    data = [(gemms(tuple(r["shape"]))[mode], t, r[mode]["us"][i])
-            for r in sweep["rows"] for mode in ("fwd", "dx")
-            for i, t in enumerate(tiles)]
+    family_summary(conv, sweep, tiles)
+    # a sweep of a wider table fits the table as it stands: the times of
+    # tiles since deleted are left out
+    for r in sweep["rows"]:
+        for mode in ("fwd", "dx"):
+            if mode in r:
+                r[mode]["us"] = [(t, us) for t, us in r[mode]["us"]
+                                 if tiles[t] in conv.TILES]
+    data = []                     # (tile, kernel shape, A streams, us)
+    for r in sweep["rows"]:
+        for mode in ("fwd", "dx"):
+            if mode not in r:
+                continue
+            ks, a = kernel_shape(tuple(r["shape"]), mode, r["act"])
+            data += [(tiles[t], ks, a, us) for t, us in r[mode]["us"]
+                     if conv.applicable(tiles[t], ks, a)]
+    costs, res = {}, {"cost": {}}
+    for fam, name in enumerate(conv.FAMILIES):
+        pts = [d for d in data if d[0][0] == fam]
+        if not pts:
+            continue
+        # a split tile runs the gather body on 1/S of the chunks: its mma
+        # and byte rates are the gather tiles' (they cannot be told apart
+        # from its chunks at the few shapes it takes); fit the rest
+        tied = fam == conv.SPLIT and conv.GATHER in costs
+        full = (lambda c: (c[0], c[1], costs[conv.GATHER][2],
+                           costs[conv.GATHER][3], c[2])) if tied else tuple
+        start = [conv.COST[fam][i] for i in (0, 1, 4)] if tied \
+            else conv.COST[fam]
 
-    def loss(cost):
-        if min(cost) <= 0:
-            return 1e9
-        return sum((np.log(conv.tile_cost(t, *g, cost=cost)) - np.log(us))
-                   ** 2 for g, t, us in data)
-    fit = minimize(loss, conv.COST, method="Nelder-Mead",
-                   options=dict(maxiter=4000, xatol=1e-7, fatol=1e-10))
-    cost = tuple(float(v) for v in fit.x)
-    print(f"fit: COST = {tuple(round(v, 4) for v in cost)}, rms log error "
-          f"{(fit.fun / len(data)) ** 0.5:.3f} over {len(data)} times")
-    res = {"cost": cost}
+        def loss(c):
+            if min(c) < 0:
+                return 1e9
+            return sum((np.log(conv.tile_cost(t, ks, a, cost=full(c)))
+                        - np.log(us)) ** 2 for t, ks, a, us in pts)
+        fit = minimize(loss, start, method="Nelder-Mead",
+                       options=dict(maxiter=6000, xatol=1e-7, fatol=1e-10))
+        costs[fam] = tuple(float(v) for v in full(fit.x))
+        res["cost"][name] = costs[fam]
+        print(f"fit: {name} COST = {tuple(round(v, 4) for v in costs[fam])},"
+              f" rms log error {(fit.fun / len(pts)) ** 0.5:.3f} over "
+              f"{len(pts)} times")
+    chosen = {}
     for mode in ("fwd", "dx"):
         picked = best = 0.0
+        n = 0
         for r in sweep["rows"]:
-            g, us = gemms(tuple(r["shape"]))[mode], r[mode]["us"]
-            pred = [conv.tile_cost(t, *g, cost=cost) for t in tiles]
-            picked += us[pred.index(min(pred))]
-            best += min(us)
-        print(f"fit: {mode} summed over {len(sweep['rows'])} shapes: the "
-              f"fitted model's picks {picked:.2f} us, best per shape "
-              f"{best:.2f} us")
+            if mode not in r:
+                continue
+            ks, a = kernel_shape(tuple(r["shape"]), mode, r["act"])
+            us = dict(r[mode]["us"])
+            pred = {t: conv.tile_cost(tiles[t], ks, a, cost=costs.get(
+                tiles[t][0], conv.COST[tiles[t][0]])) for t in us
+                if conv.applicable(tiles[t], ks, a)}
+            t = min(pred, key=lambda t: (pred[t], t))
+            chosen[t] = chosen.get(t, 0) + 1
+            picked += us[t]
+            best += min(us.values())
+            n += 1
+        print(f"fit: {mode} summed over {n} shapes: the fitted model's "
+              f"picks {picked:.2f} us, best per shape {best:.2f} us")
         res[mode] = {"picked_us": picked, "best_us": best}
+    res["chosen"] = {str(tiles[t]): c for t, c in sorted(chosen.items())}
+    never = [tiles[t] for t in range(len(tiles))
+             if tiles[t] in conv.TILES and t not in chosen]
+    print(f"fit: times each tile is picked {res['chosen']}; tiles of the "
+          f"table never picked: {never}")
     return res
 
 
-_NAME = re.compile(r"conv3x3_mma_kernel<(\d+), (\d+), (\d+), (\d+), "
-                   r"(true|false)>")
-
-
-def run_tiles(torch, conv, out_dir, reps=30):
-    """Every tile at every slice shape, forward and dx (ELU), in one
-    profiler window per shape; the kernels' names carry their tile."""
-    from torch.profiler import ProfilerActivity, profile
+def run_tiles(torch, conv, out_dir, shapes=None, reps=20):
+    """Every tile at every shape (slice shapes, or [(shape, act, modes)])
+    where the kernel takes it, forward and dx mode, in one profiler window
+    per shape."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     one = torch.empty(1, device="cuda")
     floor = device_ms_many(torch, [lambda: one.fill_(0.0)])
@@ -392,49 +553,55 @@ def run_tiles(torch, conv, out_dir, reps=30):
         raise RuntimeError("the profiler saw no device time for the fill")
     floor = floor[0] * 1e3
     print(f"  floor: a one-element fill kernel takes {floor:.2f} us")
+    shapes = shapes or [(s, "elu", ("fwd", "dx"))
+                        for s in slice_shapes(torch)]
+    import torch.nn.functional as F
     rows = []
-    for shape in slice_shapes(torch):
+    for shape, act, modes in shapes:
         x, k, b, g = inputs(torch, shape, gen)
-        out = conv._launch(x, k, b, "elu")
-        calls = []
-        for t in range(len(conv.TILES)):
-            calls.append(lambda t=t: conv._launch(x, k, b, "elu", tile=t))
-            calls.append(lambda t=t: conv._launch_dx(g, out, k, "elu",
-                                                     tile=t))
-        for fn in calls:
-            fn()
-        torch.cuda.synchronize()
-        times = {}
-        for _ in range(3):      # a window may come back empty: try again
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    for fn in calls:
-                        fn()
-                torch.cuda.synchronize()
-            for e in prof.key_averages():
-                mt = _NAME.search(e.key)
-                if mt:
-                    tile = conv.TILES.index(
-                        tuple(int(v) for v in mt.groups()[:4]))
-                    mode = "dx" if mt.group(5) == "true" else "fwd"
-                    times[mode, tile] = e.self_device_time_total / e.count
-            if len(times) == len(calls):
-                break
-        n, h, w, c, o = shape
-        row = {"shape": shape}
-        for mode, gemm in gemms((n, h, w, c, o)).items():
-            us = [times[mode, t] for t in range(len(conv.TILES))]
-            picked = conv._pick_tile(*gemm)
-            best = min(range(len(us)), key=us.__getitem__)
-            row[mode] = {"us": us, "picked": picked, "best": best}
-            print(f"  {str(shape):<22} {mode:<3} picked {picked} "
-                  f"{us[picked]:6.2f} us, best {best} {us[best]:6.2f} us; "
-                  + " ".join(f"{v:.2f}" for v in us), flush=True)
+        out = conv._launch(x, k, b, act)
+        # cuDNN's F.conv2d beside the tiles (TF32 off; its dx a conv of g
+        # with the adjoint taps, no ELU')
+        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        k_oihw = k.permute(3, 2, 0, 1).contiguous()
+        k_adj = k.flip((0, 1)).transpose(2, 3).permute(3, 2, 0, 1) \
+            .contiguous()
+        calls = [lambda: F.conv2d(x_nchw, k_oihw, b, padding=1),
+                 lambda: F.conv2d(g_nchw, k_adj, None, padding=1)]
+        keys = [("fwd", "cudnn"), ("dx", "cudnn")]
+        for mode in modes:
+            ks, a = kernel_shape(shape, mode, act)
+            for t, tile in enumerate(conv.TILES):
+                if not conv.applicable(tile, ks, a):
+                    continue
+                calls.append(
+                    (lambda t=t: conv._launch(x, k, b, act, tile=t))
+                    if mode == "fwd" else
+                    (lambda t=t: conv._launch_dx(g, out, k, act, tile=t)))
+                keys.append((mode, t))
+        ms = device_ms_many(torch, calls, reps)
+        if ms is None:
+            raise RuntimeError(f"{shape}: the profiler saw no device time")
+        row = {"shape": shape, "act": act}
+        for mode in modes:
+            us = [(t, v * 1e3) for (m, t), v in zip(keys, ms)
+                  if m == mode and t != "cudnn"]
+            lib = dict(zip(keys, ms))[mode, "cudnn"] * 1e3
+            picked = conv.launch_tile(shape, mode == "dx", act == "elu")
+            best = min(us, key=lambda p: p[1])[0]
+            row[mode] = {"us": us, "picked": picked, "best": best,
+                         "cudnn_us": lib}
+            by_t = dict(us)
+            print(f"  {str(shape):<22} {act:<4} {mode:<3} picked {picked} "
+                  f"{by_t[picked]:7.2f} us, best {best} {by_t[best]:7.2f} "
+                  f"us, cuDNN {lib:7.2f} us; "
+                  + " ".join(f"{t}:{v:.2f}" for t, v in us), flush=True)
         rows.append(row)
     for mode in ("fwd", "dx"):
-        s_pick = sum(r[mode]["us"][r[mode]["picked"]] for r in rows)
-        s_best = sum(r[mode]["us"][r[mode]["best"]] for r in rows)
-        print(f"tiles: {mode} summed over {len(rows)} shapes: picked "
+        rs = [r[mode] for r in rows if mode in r]
+        s_pick = sum(dict(r["us"])[r["picked"]] for r in rs)
+        s_best = sum(dict(r["us"])[r["best"]] for r in rs)
+        print(f"tiles: {mode} summed over {len(rs)} shapes: picked "
               f"{s_pick:.2f} us, best per shape {s_best:.2f} us")
     return {"tiles": conv.TILES, "floor_us": floor, "rows": rows}
 
@@ -511,12 +678,12 @@ def run_step(torch, out_dir, backends, steps=40, device="cuda"):
         if launches:
             # host time of the wrapper's tile choice: one call per launch,
             # timed over the lane's conv shapes, forward and dx
-            picks = [g[:3] for s in slice_shapes(torch, (trial.filters,), bs)
-                     for g in gemms(s).values()]
+            picks = [(s, dx) for s in slice_shapes(torch, (trial.filters,), bs)
+                     for dx in (False, True)]
             t2 = time.perf_counter()
             for _ in range(200):
-                for g in picks:
-                    conv._pick_tile(*g)
+                for s, dx in picks:
+                    conv.launch_tile(s, dx)
             pick_us = (time.perf_counter() - t2) * 1e6 / (200 * len(picks))
             res[backend]["tile_pick_host_us"] = pick_us
             res[backend]["tile_pick_host_ms_per_step"] = \
@@ -535,6 +702,13 @@ def main(argv=None):
                     help="step: conv backend(s) to profile "
                          "(default: kernel and torch)")
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--shapes", help="tiles: a JSON list of {shape, act, "
+                    "modes} (chip_smoke.py --shapes-json) instead of the "
+                    "slice shapes")
+    ap.add_argument("--tile", type=int, action="append",
+                    help="check, lanes: only these tiles")
+    ap.add_argument("--shape", type=int, nargs=5, action="append",
+                    help="check: only these shapes (N H W C O)")
     args = ap.parse_args(argv)
     if args.mode == "fit":
         run_fit(args.sweep)
@@ -553,11 +727,18 @@ def main(argv=None):
         from s2s_ismr_tpu_torch.kernels import _build, conv
         info = _build.build()
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warn", "wgmma", "entry")):
                 print(f"  ptxas: {line.strip()}")
         print(f"  built in {info['seconds']:.1f} s", flush=True)
-        res = {"check": run_check, "lanes": run_lanes,
-               "tiles": run_tiles}[args.mode](torch, conv, args.out)
+        if args.mode == "check":
+            res = run_check(torch, conv, args.out, args.tile,
+                            [tuple(v) for v in args.shape or ()])
+        elif args.mode == "lanes":
+            res = run_lanes(torch, conv, args.out, tiles=args.tile)
+        else:
+            res = run_tiles(torch, conv, args.out,
+                            read_shapes(args.shapes) if args.shapes else None)
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"conv_bench_{args.mode}.json")
     with open(path, "w") as fh:

@@ -17,6 +17,7 @@ import torch
 
 from s2s_ismr_tpu.kernels import conv3x3_bias_act as jax_conv
 from s2s_ismr_tpu_torch.kernels import conv as tconv
+from s2s_ismr_tpu_torch.pipelines import CONFIGS
 
 
 def _ref_conv(x, w, b, act):
@@ -162,30 +163,157 @@ def test_dx_call_non_cpu_non_cuda_tensor_raises():
 
 
 def test_tile_rule_covers_the_slice():
-    """_pick_tile returns a valid tile for every slice shape, forward and
-    dx, and the channel tile never pads O = 8/12/16 by more than one
-    n8 fragment."""
+    """_pick_tile returns a tile the kernel takes for every slice shape,
+    forward and dx, and the channel tile never pads O = 8/12/16 by more
+    than one n8 fragment."""
     shapes = [(16, 32, 32, 1, 8), (16, 32, 32, 12, 12), (16, 16, 16, 8, 16),
               (16, 4, 4, 96, 96), (16, 8, 8, 96, 48), (349, 32, 32, 1, 8),
               (349, 4, 4, 96, 96), (2, 1, 1, 3, 5), (2, 4, 4, 384, 384)]
-    for n, h, w, c, o in shapes:
-        for mm, nn, kk in ((n * h * w, o, 9 * c), (n * h * w, c, 9 * o)):
-            t = tconv._pick_tile(mm, nn, kk)
+    for shape in shapes:
+        for dx in (False, True):
+            t = tconv.launch_tile(shape, dx)
             assert 0 <= t < len(tconv.TILES)
-            bn = tconv.TILES[t][1]
+            n, h, w, c, o = shape
+            ks = (n, h, w, o, c) if dx else shape
+            assert tconv.applicable(tconv.TILES[t], ks, 2 if dx else 1)
+            bn, nn = tconv.TILES[t][2], ks[4]
             if nn <= 16:
                 assert -(-nn // bn) * bn - nn < 8, (nn, bn)
 
 
 def test_tile_choice_is_the_cost_models_and_cached():
-    """The wrapper's tile is the least tile_cost (first on ties), and a
-    repeated shape is answered from the cache."""
-    for gemm in ((16384, 8, 9), (256, 96, 864), (4096, 24, 216, 2)):
-        costs = [tconv.tile_cost(t, *gemm) for t in tconv.TILES]
-        assert tconv._pick_tile(*gemm) == costs.index(min(costs))
+    """The wrapper's tile is the least tile_cost among the tiles the
+    kernel takes (first on ties), and a repeated shape is answered from
+    the cache."""
+    for shape, a in (((16, 32, 32, 1, 8), 1), ((16, 4, 4, 96, 96), 1),
+                     ((16, 16, 16, 24, 24), 2), ((16, 1, 1, 384, 384), 1)):
+        costs = [tconv.tile_cost(t, shape, a)
+                 if tconv.applicable(t, shape, a) else float("inf")
+                 for t in tconv.TILES]
+        assert tconv._pick_tile(shape, a) == costs.index(min(costs))
         hits = tconv._pick_tile.cache_info().hits
-        tconv._pick_tile(*gemm)
+        tconv._pick_tile(shape, a)
         assert tconv._pick_tile.cache_info().hits == hits + 1
+
+
+def _source_tiles():
+    """kTiles as csrc/conv3x3.cu writes it."""
+    import pathlib
+    import re
+    src = (pathlib.Path(tconv.__file__).resolve().parent.parent / "csrc"
+           / "conv3x3.cu").read_text()
+    body = src[src.index("constexpr Tile kTiles[] = {"):]
+    body = body[:body.index("};")]
+    fams = {"k" + "".join(p.capitalize() for p in f.split("_")): i
+            for i, f in enumerate(tconv.FAMILIES)}
+    return tuple((fams[f],) + tuple(int(v) for v in rest.split(","))
+                 for f, rest in re.findall(r"\{(k\w+),\s*([\d,\s]+)\}",
+                                           body))
+
+
+def test_tile_table_is_the_sources():
+    """The wrapper's tile table equals kTiles in the kernel's source, and
+    each family keeps its shape rules (the card-side check is phase 2)."""
+    assert _source_tiles() == tconv.TILES
+    for fam, bm, bn, wm, wn, s in tconv.TILES:
+        assert bn in (8, 16, 32) and 4 % (wm * wn) == 0
+        if fam in (tconv.HALO, tconv.HALO_MMA):
+            assert bm in (64, 128) and (wm, wn, s) == (4, 1, 1)
+        elif fam == tconv.SPLIT:
+            assert 2 <= s <= 8
+        else:
+            assert s == 1
+
+
+def _grid_shapes():
+    """{case: [conv shapes]}: every shape conv_bench.config_shapes gives
+    over the eight configs (training and eval), and phase 12's."""
+    import chip_smoke
+    from s2s_ismr_tpu_torch.kernels import conv_bench
+    chip_smoke.bench = conv_bench
+    cases = {}
+    for cfg in chip_smoke.suite_configs():
+        tr, ev = conv_bench.config_shapes(torch, cfg, device="cpu")
+        cases[cfg.name] = tr + ev
+    first, multi, stacked = chip_smoke.member_shapes(torch, device="cpu")
+    cases["phase 12"] = first + multi + stacked
+    return cases
+
+
+@pytest.fixture(scope="module")
+def grid_shapes():
+    return _grid_shapes()
+
+
+@pytest.mark.parametrize("case", list(CONFIGS) + ["phase 12"])
+def test_picks_hold_their_preconditions(grid_shapes, case):
+    """At every shape of the case, forward and dx (ELU and none), one lane
+    and 20, the wrapper's tile holds its family's preconditions: a halo
+    tile stages all its channels at once, and its box lies within its
+    shared memory and within TMA's limits
+    (boxes of at most 256 per dimension, 16-byte rows and strides) where
+    it loads by TMA, which it does only where the staged channel count is
+    a multiple of 4; a split tile has no more ranks than K chunks, at most
+    128 rows and K >= 576; the grid's z extent (the lanes) and y extent
+    within range."""
+    shapes = grid_shapes[case]
+    assert shapes
+    for shape in shapes:
+        for dx, elu in ((False, True), (True, True), (True, False)):
+            for lanes in (1, 20):
+                t = tconv.launch_tile(shape, dx, elu, lanes)
+                tile = tconv.TILES[t]
+                fam, bm, bn = tile[:3]
+                n, h, w, c, o = shape
+                ks = (n, h, w, o, c) if dx else shape
+                cst, cout = ks[3], ks[4]
+                assert tconv.applicable(tile, ks, 2 if dx and elu else 1)
+                assert lanes <= tconv.MAX_LANES and -(-cout // bn) <= 65535
+                if fam in (tconv.HALO, tconv.HALO_MMA):
+                    cs, bw, bh, tma = tconv.halo_box(tile, ks)
+                    assert 8 <= w <= bm and bh - 2 == min(bm // w, h)
+                    assert cst <= tconv.halo_ck(bn)
+                    assert tconv.halo_smem(tile, ks, dx and elu) \
+                        <= tconv.HALO_SMEM
+                    assert tma == (cst % 4 == 0)
+                    if tma:
+                        assert max(cs, bw, bh) <= 256 and cs * 4 % 16 == 0
+                        assert cst * 4 % 16 == 0
+                    else:
+                        assert cs % 2 == 1
+                elif fam == tconv.SPLIT:
+                    assert n * h * w <= 128 and 9 * cst >= 576
+                    assert tile[5] <= -(-9 * cst // tconv._BK)
+
+
+def test_tile_cost_counts_staged_pixels_and_split_chunks():
+    """tile_cost charges a halo tile's A bytes once per staged pixel of
+    its (R+2) x (W+2) box and n tile (a gather tile's once per tap), and
+    walks a split tile's K chunks divided by S, plus S ranks of the
+    reduction."""
+    halo = next(t for t in tconv.TILES if t[0] == tconv.HALO)
+    n, h, w, c, o = shape = (16, 32, 32, 16, 8)
+    r = tconv.halo_rows(halo, h, w)
+    nt = -(-o // halo[2])
+    for a in (1, 2):
+        got = tconv.tile_cost(halo, shape, a, cost=(0, 0, 0, 1, 0))
+        staged = nt * n * -(-h // r) * (r + 2) * (w + 2) * c * a
+        assert got == pytest.approx((staged + n * h * w * o) * 4 / 1e6)
+        gather = tconv.TILES[0]
+        got = tconv.tile_cost(gather, shape, a, cost=(0, 0, 0, 1))
+        taps = -(-o // gather[2]) * n * h * w * 9 * c * a
+        assert got == pytest.approx((taps + n * h * w * o) * 4 / 1e6)
+    split = [t for t in tconv.TILES if t[0] == tconv.SPLIT]
+    assert split
+    shape = (16, 1, 1, 384, 384)
+    chunks = -(-9 * 384 // tconv._BK)
+    for t in split:
+        s = t[5]
+        blocks = -(-16 // t[1]) * -(-384 // t[2]) * s
+        waves = max(1.0, blocks / 132)
+        got = tconv.tile_cost(t, shape, cost=(0, 1, 0, 0, 0))
+        assert got == pytest.approx(waves * -(-chunks // s))
+        assert tconv.tile_cost(t, shape, cost=(0, 0, 0, 0, 1)) == s
 
 
 def test_bound_at_the_3xtf32_rate():

@@ -156,12 +156,12 @@ def test_tile_cost_of_a_lane_launch():
     """One lane is the model as fitted; L lanes have L times the blocks
     and the bytes, so the modelled time never falls with L."""
     for tile in conv.TILES:
-        assert conv.tile_cost(tile, 16384, 8, 9, lanes=1) == \
-            conv.tile_cost(tile, 16384, 8, 9)
-        assert conv.tile_cost(tile, 256, 96, 864, lanes=20) >= \
-            conv.tile_cost(tile, 256, 96, 864)
-    assert conv._pick_tile(256, 96, 864, 1, 1) == conv._pick_tile(256, 96,
-                                                                  864)
+        assert conv.tile_cost(tile, (16, 32, 32, 1, 8), lanes=1) == \
+            conv.tile_cost(tile, (16, 32, 32, 1, 8))
+        assert conv.tile_cost(tile, (16, 4, 4, 96, 96), lanes=20) >= \
+            conv.tile_cost(tile, (16, 4, 4, 96, 96))
+    assert conv._pick_tile((16, 4, 4, 96, 96), 1, 1) == \
+        conv._pick_tile((16, 4, 4, 96, 96))
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
