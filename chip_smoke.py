@@ -169,10 +169,30 @@ line is printed:
      device events equal to the launch counter's delta, and the kernel's
      share of the epoch's device time; (c) graph and seam in turns, lane
      steps/s, idle share and device ops per lane step;
+  15. (last) the port's measurement programs, each a subprocess with a
+     fresh CUDA context that loads the kernel library itself: (a) `python
+     -m s2s_ismr_tpu_torch.bench` at full size (the JAX bench's workload:
+     20 lanes x 10 epochs on 32x32; sequential, serial-async and vmapped,
+     the kernel and cuDNN backends, in turns): its last line has the JAX
+     bench's four keys, the sequential lanes equal the serial-async ones
+     bit for bit, every round of the kernel backend repeats, vmapped
+     within 1e-5 of serial-async; (b) `python -m
+     s2s_ismr_tpu_torch.probes.roofline`: the conv census per lane step
+     equals step_launches(3) (14 forward, 13 dx), the profiled replay's
+     conv events equal the launches its program captured; per-op latencies
+     and the ceiling printed; (c) `python -m
+     s2s_ismr_tpu_torch.probes.lane_regime --turns 1`: serial against
+     vmapped lanes at L = 2-20 (32x32) and 2-10 (64x64, n_blocks 4), the
+     stop epochs equal and the best val losses within 1e-4 at the full
+     lane counts; (d) the flag-matrix legs `tune_GEFS_com --standardize`
+     and `tune_IITM_com --batch-size full` at `--folds 1 --epochs 1`
+     in-process: test RPSS finite on land, launches exact; then the kernel
+     against float64 at the full-batch training shapes (N = T), each
+     within the wrapper's N*H*W limit;
 then checks that neither jax nor any module of the JAX package
 (s2s_ismr_tpu) was loaded; prints the kernels JSON line (launches summed
-over phases 4, 5, 6, 8, 9, 10, 11, 12 and 13; times and bounds summed over
-the shapes of phase 3, the forward under ms / plain_ms / library_ms /
+over phases 4, 5, 6, 8, 9, 10, 11, 12, 13 and 15; times and bounds summed
+over the shapes of phase 3, the forward under ms / plain_ms / library_ms /
 bound_ms / bound_3xtf32_ms, the dx mode under dx_*; phase 10's lane mode
 at L = 4 under lanes_* (lanes_serial_ms: L one-lane launches,
 lanes_library_ms: cuDNN grouped), at L = 20 under lanes20_*,
@@ -183,7 +203,11 @@ its eval shapes under iitm_*, over the first convs under iitm_first_* and
 iitm_first_dx_*, its shape count and launches; phase 13's launches
 under depth_launches; phase 14's numbers under programs_*, with
 programs_kernel_share the conv kernel's share of a replayed epoch's
-device time; the tile family counts per phase and mode under families),
+device time; phase 15's launches per program under bench_launches,
+roofline_launches, lane_regime_launches and flags_launches, the bench's
+value, vs_baseline and each mode's steps/s under bench_*, the roofline's
+per-op latencies under roofline_*; the tile family counts per phase and
+mode under families),
 the card line, then the result line {"ok": true, ...}.
 
     python3 chip_smoke.py --shapes-json PATH
@@ -228,6 +252,8 @@ MULTI_SHAPES = ((16, 32, 32, 11, 8), (16, 32, 32, 11, 12),
                 (16, 32, 32, 24, 8))
 # rows of the realtime period, the final year of tune_ECMWF_com's record
 RT_ROWS = 21
+# shapes timed in one profiler window by kernel_times
+WINDOW_SHAPES = 8
 
 
 class SmokeFailure(Exception):
@@ -240,12 +266,11 @@ def check(cond, msg):
 
 
 def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    from s2s_ismr_tpu_torch.device import card_line as line
+    try:
+        return line()
+    except RuntimeError as e:
+        raise SmokeFailure(str(e)) from None
 
 
 def errors(got, want):
@@ -255,12 +280,6 @@ def errors(got, want):
     excess = float((diff - (bench.ATOL + bench.RTOL * want.abs())).max())
     return (float(diff.max()),
             float((diff / want.abs().clamp_min(1e-30)).max()), excess)
-
-
-def is_conv_kernel(name):
-    """Whether a device event is one of the conv kernel's launches (every
-    tile family's kernel is named conv3x3_*_kernel)."""
-    return "conv3x3_" in name and "_kernel" in name
 
 
 # tiles taken per phase, mode and family at the shapes each phase times
@@ -370,10 +389,12 @@ def kernel_times(torch, conv, shapes, act="elu", modes=("fwd", "dx"),
     the forward (bias + act) and the dx mode (for ELU: dx and g'), or the
     `modes` of these that the path runs at these shapes. cuDNN's
     dx is one F.conv2d of g with the adjoint taps made beforehand, so for
-    ELU it does less than the kernel (no ELU', no g'). A shape's ten
-    timings come from one profiler window (bench.device_ms_many; at phase
-    3's 22 U-Net shapes its sums were within 5% of one window per timing,
-    PERF.md §6). Returns the sums
+    ELU it does less than the kernel (no ELU', no g'). The timings of
+    WINDOW_SHAPES shapes at a time come from one profiler window
+    (bench.device_ms_many, each call's events up to its marker; at phase
+    3's 22 U-Net shapes one window per shape gave sums within 5% of one
+    window per timing, PERF.md §6, and a window's fixed cost is paid once
+    per group). Returns the sums
     over the shapes, in ms, with the bound summed the same way, and the
     same numbers per shape: {shape: {mode: {key: ms}}}. Each shape's line
     names the tile and family the wrapper took; with `phase`, the family
@@ -386,30 +407,37 @@ def kernel_times(torch, conv, shapes, act="elu", modes=("fwd", "dx"),
     tf32x3 = bench.PEAK_TF32_FLOPS / 3
     sums = {m: dict.fromkeys(keys, 0.0) for m in modes}
     per_shape = {}
-    for shape in shapes:
+    elu = act == "elu"
+
+    @torch.no_grad()
+    def shape_calls(shape):
         x, k, b, g = bench.inputs(torch, shape, gen)
-        elu = act == "elu"
+        out = conv.conv3x3_bias_act(x, k, b, act)
+        x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        k_oihw = k.permute(3, 2, 0, 1).contiguous()
+        k_adj = k.flip((0, 1)).transpose(2, 3).permute(3, 2, 0, 1) \
+            .contiguous()
+        calls = {
+            "fwd": (lambda: conv.conv3x3_bias_act(x, k, b, act),
+                    lambda: F.conv2d(x_nchw, k_oihw, b, padding=1),
+                    lambda: conv.conv3x3_bias_act_plain(x, k, b, act)),
+            "dx": (lambda: conv._dx_call(g, out, k, act),
+                   lambda: F.conv2d(g_nchw, k_adj, None, padding=1),
+                   lambda: conv.conv3x3_dx_plain(g, out, k, act))}
+        return {m: calls[m] for m in modes}
+
+    for i in range(0, len(shapes), WINDOW_SHAPES):
+        group = shapes[i:i + WINDOW_SHAPES]
+        calls = [shape_calls(shape) for shape in group]
+        order = [f for c in calls for kern, lib, plain in c.values()
+                 for f in (kern, lib, kern, lib, plain)]
         with torch.no_grad():
-            out = conv.conv3x3_bias_act(x, k, b, act)
-            x_nchw, g_nchw = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
-            k_oihw = k.permute(3, 2, 0, 1).contiguous()
-            k_adj = k.flip((0, 1)).transpose(2, 3).permute(3, 2, 0, 1) \
-                .contiguous()
-            calls = {
-                "fwd": (lambda: conv.conv3x3_bias_act(x, k, b, act),
-                        lambda: F.conv2d(x_nchw, k_oihw, b, padding=1),
-                        lambda: conv.conv3x3_bias_act_plain(x, k, b, act)),
-                "dx": (lambda: conv._dx_call(g, out, k, act),
-                       lambda: F.conv2d(g_nchw, k_adj, None, padding=1),
-                       lambda: conv.conv3x3_dx_plain(g, out, k, act))}
-            calls = {m: calls[m] for m in modes}
-            order = [f for kern, lib, plain in calls.values()
-                     for f in (kern, lib, kern, lib, plain)]
             ts = bench.device_ms_many(torch, order)
-            check(ts is not None, f"{shape}: the profiler saw no device time")
+        check(ts is not None, f"{group}: the profiler saw no device time")
+        for j, shape in enumerate(group):
             parts = []
-            for i, mode in enumerate(calls):
-                t = ts[5 * i:5 * i + 5]
+            for m, mode in enumerate(modes):
+                t = ts[5 * (j * len(modes) + m):][:5]
                 ms, lib_ms = (t[0] + t[2]) / 2, (t[1] + t[3]) / 2
                 t_ops, t_bytes = bench.bound_parts(shape, mode == "dx", elu)
                 bnd, by = bench.bound(shape, mode == "dx", elu)
@@ -429,7 +457,7 @@ def kernel_times(torch, conv, shapes, act="elu", modes=("fwd", "dx"),
                     f"{t[4] * 1e3:.2f} us, bound {bnd * 1e3:.3f} us "
                     f"({by}), {bnd / ms:.1%} of bound; at 3xTF32 "
                     f"{bnd3 * 1e3:.3f} us ({by3}), {bnd3 / ms:.1%}")
-        print(f"  {str(shape):<22} {act:<4} " + "   ".join(parts))
+            print(f"  {str(shape):<22} {act:<4} " + "   ".join(parts))
     if phase is not None:
         count_families(conv, phase, shapes, act, modes)
         print_wins(per_shape)
@@ -609,6 +637,13 @@ def check_rpss(root, out, land, tags=None):
     return means
 
 
+def step_launches(n_blocks):
+    """(forward, dx) conv kernel launches of one U-Net optimizer step: the
+    forward of each of its 4 n_blocks + 2 kernel convs and the dx mode of
+    all but the first (its input, the image, needs no gradient)."""
+    return 4 * n_blocks + 2, 4 * n_blocks + 1
+
+
 def expected_launches(torch, out, load=False):
     """Kernel launches a run implies: per optimizer step the forward and
     the dx of every kernel conv but the first (its input, the image, needs
@@ -640,7 +675,7 @@ def expected_launches(torch, out, load=False):
                 for t in trials:
                     e = int(sw.epochs_table[f, t.index])
                     s = e * train_batches(n_train, t.batch_size)
-                    count += (s * (2 * depth(t) - 1)
+                    count += (s * sum(step_launches(t.n_blocks))
                               + e * depth(t) * val_chunks)
                     steps, epochs = steps + s, epochs + e
             count += sum(depth(t) for t in sw.best_trial) * fwd_chunks
@@ -1458,7 +1493,8 @@ def traced_run(torch, conv, card, work):
         parse_s = time.perf_counter() - t0
         kernels = [e for e in events
                    if str(e.get("cat", "")).lower() == "kernel"]
-        n_conv = sum(is_conv_kernel(e.get("name", "")) for e in kernels)
+        n_conv = sum(conv.is_kernel_event(e.get("name", ""))
+                     for e in kernels)
         print(f"  (d) {stage} trace {os.path.relpath(rec.path, work)}: "
               f"{rec.bytes} bytes, written in {rec.write_s:.3f} s, parsed "
               f"in {parse_s:.3f} s; {len(events)} events, {len(kernels)} "
@@ -1610,26 +1646,11 @@ def lane_kernel_times(torch, conv, shapes, card):
     return res
 
 
-def device_events(torch, fn):
-    """(fn's result, wall s, device events) of one run of fn under
-    torch.profiler (CUDA activity only): the events are the device's
-    kernels, copies and fills."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    return out, wall, events
-
-
 def device_busy(torch, fn):
     """(fn's result, wall s, device busy s) of one run of fn under
     torch.profiler: busy is the sum of the device events' durations."""
-    out, wall, events = device_events(torch, fn)
+    from s2s_ismr_tpu_torch.bench import device_profile
+    out, wall, events = device_profile(fn)
     return out, wall, sum(e.time_range.elapsed_us() for e in events) / 1e6
 
 
@@ -1795,6 +1816,7 @@ def lanes_path(torch, conv, card, work):
 # a memoized CUDA graph) against the uncaptured seam
 PROG_CONFIG = "tune_ECMWF_com"
 PROG_EPOCHS = 6
+PROG_TURN_EPOCHS = 3     # (c)'s: fewer, so the script fits its time limit
 PROG_TURNS = 3
 PROG_DEVICE = "cuda"     # "cpu" rehearses the phase (not its device numbers)
 
@@ -1965,6 +1987,7 @@ def programs_bits(torch, conv, card):
 def programs_trace(torch, conv, data):
     """(b) of phase 14: the conv kernel's device events in one profiled
     epoch (a replay) against the counter's delta."""
+    from s2s_ismr_tpu_torch.bench import device_profile
     from s2s_ismr_tpu_torch.models import UNet, UNetConfig
     from s2s_ismr_tpu_torch.train.engine import TrainSettings, train_fold
     x, y, fm = data
@@ -1979,9 +2002,9 @@ def programs_trace(torch, conv, data):
 
     epoch()                          # the program, built outside the trace
     before, warm = conv.LAUNCHES, conv.WARMUP_LAUNCHES
-    _, wall, events = device_events(torch, epoch)
+    _, wall, events = device_profile(epoch)
     delta = conv.LAUNCHES - before
-    convs = [e for e in events if is_conv_kernel(e.name)]
+    convs = [e for e in events if conv.is_kernel_event(e.name)]
     n_conv = len(convs)
     check(conv.WARMUP_LAUNCHES == warm and n_conv == delta and delta > 0,
           f"(b) profiled epoch: {n_conv} conv kernel events, counter delta "
@@ -1999,18 +2022,20 @@ def programs_trace(torch, conv, data):
 
 def programs_turns(torch, conv, card, data, since):
     """(c) of phase 14: graph against seam in turns on 2 lanes x
-    PROG_EPOCHS epochs; then one profiled run of each; the programs'
+    PROG_TURN_EPOCHS epochs; then one profiled run of each; the programs'
     counts since `since` (programs.STATS at the phase's start). Returns
     the numbers for the kernels line."""
     from s2s_ismr_tpu_torch import programs
+    from s2s_ismr_tpu_torch.bench import device_profile
     from s2s_ismr_tpu_torch.models import UNet, UNetConfig
     from s2s_ismr_tpu_torch.train.engine import (TrainSettings, train_batches,
                                                  train_fold)
     x, y, fm = data
-    st = TrainSettings(epochs=PROG_EPOCHS, batch_size=BATCH, patience=15,
+    st = TrainSettings(epochs=PROG_TURN_EPOCHS, batch_size=BATCH,
+                       patience=15,
                        val_rows=int(fm.val.sum(1).max()), early_exit=True)
-    steps = PROG_EPOCHS * sum(train_batches(int(fm.train[f].sum()), BATCH)
-                              for f in (0, 1))
+    steps = PROG_TURN_EPOCHS * sum(
+        train_batches(int(fm.train[f].sum()), BATCH) for f in (0, 1))
 
     def two_lanes(uncaptured):
         out = []
@@ -2042,10 +2067,11 @@ def programs_turns(torch, conv, card, data, since):
             check(all(torch.equal(v, rv) for (_, v, _), (_, rv, _)
                       in zip(key, ref)), f"(c) {mode} turn {turn}: val "
                   f"losses differ from the first run's")
-            rates[mode].append((steps / secs, secs * 1e3 / (2 * PROG_EPOCHS)))
+            rates[mode].append((steps / secs,
+                                secs * 1e3 / (2 * PROG_TURN_EPOCHS)))
     prof = {}
     for mode in ("graph", "seam"):
-        _, wall, events = device_events(torch, lambda: two_lanes(
+        _, wall, events = device_profile(lambda: two_lanes(
             mode == "seam"))
         busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
         prof[mode] = (1 - busy / wall, len(events) / steps, busy * 1e3 / steps)
@@ -2056,7 +2082,7 @@ def programs_turns(torch, conv, card, data, since):
               f"{[round(v[1], 2) for v in r]}; profiled: idle share "
               f"{prof[mode][0]:.3f}, {prof[mode][1]:.1f} device ops and "
               f"{prof[mode][2]:.3f} device ms per lane step ({steps} lane "
-              f"steps, 2 lanes x {PROG_EPOCHS} epochs) on {card}")
+              f"steps, 2 lanes x {PROG_TURN_EPOCHS} epochs) on {card}")
     s = {k: v - since[k] for k, v in programs.STATS.items()}
     caps = max(1, s["captures"])
     pool = pool_bytes(torch)
@@ -2999,6 +3025,182 @@ def write_depth(torch, conv, card, path):
     print(f"  wrote {path}: largest drift {drift!r}, tolerance {tol!r}")
 
 
+# phase 15: the port's measurement programs, the counterparts of the JAX
+# bench, probes/roofline_r5.py and probes/lane_regime_probe.py, each run as
+# a subprocess (a fresh CUDA context: torch.profiler loses device events
+# late in this one, and each program loads the kernel library itself), and
+# the two legs of probes/flagmatrix_r4.py:45-51 that no earlier phase runs
+MEASURE = (("bench", ["s2s_ismr_tpu_torch.bench"]),
+           ("roofline", ["s2s_ismr_tpu_torch.probes.roofline"]),
+           ("lane_regime", ["s2s_ismr_tpu_torch.probes.lane_regime",
+                            "--turns", "1"]))
+MEASURE_TIMEOUT = 900
+BENCH_VMAP_ATOL = 1e-5   # vmapped against serial-async best val losses
+FLAG_LEGS = (("standardize", ["tune_GEFS_com", "--standardize"]),
+             ("batch_full", ["tune_IITM_com", "--batch-size", "full"]))
+FLAG_CUT = ["--synthetic", "--folds", "1", "--epochs", "1"]
+
+
+def measure(name, args, card):
+    """`python -m args` from the repo's root; prints its output (but its
+    long JSON lines) and returns its stdout lines. A non-zero exit
+    fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=root,
+                          capture_output=True, text=True,
+                          timeout=MEASURE_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if len(line) <= 600:
+            print(f"  | {line}")
+    check(proc.returncode == 0, f"({name}) `python -m {' '.join(args)}` "
+          f"exited {proc.returncode}: {proc.stderr[-3000:]}")
+    print(f"  ({name}) took {time.perf_counter() - t0:.1f} s on {card}")
+    return lines
+
+
+def bench_run(card):
+    """(a): the port's bench at full size. Its last line has the JAX
+    bench's four keys; the sequential lanes equal the serial-async ones bit for
+    bit, every round of the kernel backend repeats the first, and the
+    vmapped lanes lie within BENCH_VMAP_ATOL of the serial-async ones.
+    Returns (its conv launches, its report, its last line)."""
+    lines = measure("a", MEASURE[0][1], card)
+    last = json.loads(lines[-1])
+    check(sorted(last) == ["metric", "unit", "value", "vs_baseline"]
+          and last["metric"] == "unet_tuning_steps_per_sec_per_chip",
+          f"(a) the bench's last line {last}")
+    rep = next(json.loads(line)["bench"] for line in lines
+               if line.startswith('{"bench"'))
+    check(rep["captures_after_warmup"] == 0, f"(a) the bench captured "
+          f"{rep['captures_after_warmup']} programs after its warm-up")
+    v = rep["variants"]
+    for key, var in v.items():
+        if key.endswith("/kernel"):
+            check(all(r["best_vloss"] == var["best_vloss"]
+                      for r in var["rounds"]),
+                  f"(a) {key}: a round's best val losses differ from the "
+                  f"first round's")
+    seq = v["sequential/kernel"]["best_vloss"]
+    asy = v["serial-async/kernel"]["best_vloss"]
+    vm = v["vmapped/kernel"]["best_vloss"]
+    check(seq == asy[:len(seq)], f"(a) sequential {seq} and serial-async "
+          f"{asy[:len(seq)]} best val losses differ")
+    dv = max(abs(a - b) for a, b in zip(vm, asy))
+    check(dv <= BENCH_VMAP_ATOL, f"(a) vmapped best val losses {dv:.3e} "
+          f"from serial-async's")
+    print(f"  (a) {last['metric']} = {last['value']} {last['unit']}, "
+          f"vs_baseline {last['vs_baseline']}; the sequential lanes == "
+          f"serial-async bit for bit, every round repeats, vmapped within "
+          f"{dv:.2e}; {rep['launches']} conv launches")
+    return rep["launches"], rep, last
+
+
+def roofline_run(card, work):
+    """(b): the roofline probe; its conv census per lane step equals
+    step_launches(3), and the profiled replay's conv kernel events equal
+    the launches its program captured. Returns (its conv launches, its
+    report)."""
+    path = os.path.join(work, "roofline.json")
+    measure("b", MEASURE[1][1] + ["--out", path], card)
+    with open(path) as fh:
+        rep = json.load(fh)
+    cc, ce = rep["conv_census"], rep["census"]
+    fwd, dx = step_launches(3)
+    got = (sum(cc["fwd"].values()), sum(cc["dx"].values()))
+    check(got == (fwd, dx), f"(b) conv census per lane step {got}, "
+          f"expected {(fwd, dx)}")
+    rp = ce["replay"]
+    want = ce["n_steps"] * (fwd + dx) + fwd * ce["val_chunks"]
+    check(rp["conv_launches"] == rp["captured_launches"] == want,
+          f"(b) the replay's conv events {rp['conv_launches']}, captured "
+          f"{rp['captured_launches']}, expected {want}")
+    bad = [k for k, us in rep["per_op_us"].items() if us <= 0]
+    print(f"  (b) conv census per lane step {got} = step_launches(3); the "
+          f"replay's {rp['conv_launches']} conv events = captured = "
+          f"expected; per-op us {rep['per_op_us']}, elementwise "
+          f"{rep['elementwise_us']:.3f}; conv floor "
+          f"{rep['conv_floor_step_us']:.1f} us, serialized "
+          f"{rep['serialized_sum_step_us']:.1f} us, measured "
+          f"{rep['serial_async_step_us']:.1f} us per step (achieved "
+          f"{rep['achieved_fraction_of_conv_floor']:.3f} of the floor)"
+          + (f"; K2 - K1 not positive at {bad}" if bad else ""))
+    return rep["launches"], rep
+
+
+def lane_regime_run(card, work):
+    """(c): the lane-regime probe; at each workload's full lane count the
+    vmapped lanes stop where the serial ones stop, their best val losses
+    within DEPTH_RTOL. Returns (its conv launches, its report)."""
+    path = os.path.join(work, "lane_regime.json")
+    measure("c", MEASURE[2][1] + ["--out", path], card)
+    with open(path) as fh:
+        rep = json.load(fh)
+    for name, res in rep["shapes"].items():
+        check(res["stops_equal"] and res["max_dvloss"] <= DEPTH_RTOL,
+              f"(c) {name}: vmap against serial: stops equal "
+              f"{res['stops_equal']}, max |dvloss| {res['max_dvloss']}")
+    print(f"  (c) vmap stops = serial stops at the full lane counts; max "
+          f"|dvloss| " + ", ".join(f"{n} {r['max_dvloss']:.2e}"
+                                    for n, r in rep["shapes"].items()))
+    return rep["launches"], rep
+
+
+def flag_legs(torch, conv, card, work):
+    """(d): the flag-matrix legs no earlier phase runs, through cli_run at
+    1 fold and 1 epoch: test RPSS finite on land, launches exact; then the
+    kernel against float64 at the full-batch leg's training shapes (batch
+    = T), each within the wrapper's N*H*W limit. Returns (launches, max
+    abs err)."""
+    from dataclasses import replace
+
+    import numpy as np
+    from s2s_ismr_tpu_torch.pipelines import get_config, tune
+    launches = 0
+    for name, argv in FLAG_LEGS:
+        d = os.path.join(work, "flags", name)
+        out, seconds, n_launch = cli_run(torch, conv,
+                                         argv + FLAG_CUT + ["--out", d])
+        cfg = out.config
+        ys = [b.y for b in tune.load_bundles(cfg).values()]
+        land = ~np.isnan(np.mean(ys, 0)).any(0)
+        means = check_rpss(d, out, land, {"ELR": out.elr.rpss_test,
+                                          "unet": out.nn.rpss_test})
+        expected, terms = expected_launches(torch, out)
+        check(n_launch == expected, f"(d) {name}: launches {n_launch}, "
+              f"expected {expected} ({terms})")
+        launches += n_launch
+        print(f"  (d) {' '.join(argv + FLAG_CUT)}: exit 0, test RPSS on "
+              f"land ELR {means['ELR']}, U-Net {means['unet']}; launches "
+              f"{n_launch} = expected ({terms}); wall {seconds:.2f} s on "
+              f"{card}")
+    cfg = get_config("tune_IITM_com")
+    cfg = replace(cfg, tuning=replace(cfg.tuning, batch_sizes=(0,)))
+    shapes = bench.config_shapes(torch, cfg)[0]
+    big = [s for s in shapes if s[0] * s[1] * s[2] > conv.MAX_PIXELS]
+    check(not big, f"(d) full-batch shapes past the kernel's N*H*W limit "
+          f"{conv.MAX_PIXELS}: {big}")
+    print(f"  (d) the kernel against float64 at the {len(shapes)} "
+          f"training shapes of tune_IITM_com --batch-size full (N = T = "
+          f"{shapes[0][0]}; N*H*W at most "
+          f"{max(s[0] * s[1] * s[2] for s in shapes)})")
+    return launches, kernel_vs_plain(torch, conv, shapes)
+
+
+def measure_path(torch, conv, card, work):
+    """Phase 15; returns (launches: per part, max abs err of (d), the
+    bench's report and last line, the roofline's report)."""
+    t0 = time.perf_counter()
+    launches = {}
+    launches["bench"], bench_rep, last = bench_run(card)
+    launches["roofline"], roof = roofline_run(card, work)
+    launches["lane_regime"], _ = lane_regime_run(card, work)
+    launches["flags"], max_abs = flag_legs(torch, conv, card, work)
+    print(f"  phase 15 wall {time.perf_counter() - t0:.2f} s")
+    return launches, max_abs, bench_rep, last, roof
+
+
 def elr_cuda_vs_cpu(torch):
     """The ELR branch of the full tune_ECMWF_com and tune_2MME configs
     (10 folds) on cuda and on the CPU in this process; returns the cuda
@@ -3118,12 +3320,12 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     try:
-        print("[1/14] device")
+        print("[1/15] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/14] build")
+        print("[2/15] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -3146,17 +3348,17 @@ def main(argv=None):
                   f"12 time to {args.shapes_json}")
             return 0
         if args.write_expected:
-            print(f"[11/14] (b) only: the suite twice -> "
+            print(f"[11/15] (b) only: the suite twice -> "
                   f"{args.write_expected}")
             write_expected(torch, conv, card, args.write_expected)
             return 0
         if args.write_depth:
-            print(f"[13/14] (a) only: the depth run twice -> "
+            print(f"[13/15] (a) only: the depth run twice -> "
                   f"{args.write_depth}")
             write_depth(torch, conv, card, args.write_depth)
             return 0
 
-        print("[3/14] kernel vs plain (TF32 off), batch 16")
+        print("[3/15] kernel vs plain (TF32 off), batch 16")
         shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  the cnn's shapes (act none) and the multi_predictor first "
@@ -3191,41 +3393,41 @@ def main(argv=None):
                     times[mode][key] = times[mode].get(key, 0.0) + v
         print(f"  max abs err {max_abs:.3e}")
 
-        print("[4/14] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[4/15] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
         with tempfile.TemporaryDirectory() as work:
             unet_root = os.path.join(work, "tune")
-            print("[5/14] main path: `python -m s2s_ismr_tpu_torch.run "
+            print("[5/15] main path: `python -m s2s_ismr_tpu_torch.run "
                   "tune_ECMWF_com --synthetic --fast` in-process on cuda")
             launches += pipeline_path(torch, conv, card, unet_root)
 
-            print("[6/14] the other run modes of tune_ECMWF_com (fast "
+            print("[6/15] the other run modes of tune_ECMWF_com (fast "
                   "variant) in-process on cuda")
             modes_launches, modes_abs = modes_path(torch, conv, card,
                                                    os.path.join(work, "modes"))
             launches += modes_launches
             max_abs = max(max_abs, modes_abs)
 
-            print("[7/14] ELR branch of the full tune_ECMWF_com and tune_2MME "
+            print("[7/15] ELR branch of the full tune_ECMWF_com and tune_2MME "
                   "(10 folds), cuda vs CPU")
             elr = elr_cuda_vs_cpu(torch)
 
-            print("[8/14] realtime path on cuda: the CLI's `realtime` on "
+            print("[8/15] realtime path on cuda: the CLI's `realtime` on "
                   "phase 5's winners, the cnn's of phase 6, and the "
                   "operational forecast on a fake cache")
             launches += realtime_path(
                 torch, conv, card, unet_root,
                 os.path.join(work, "modes", "cnn"), work)
 
-            print("[9/14] reporting and profiler traces on cuda: the CLI's "
+            print("[9/15] reporting and profiler traces on cuda: the CLI's "
                   "`accs`, REL/BSS/RES and CC/ACC against float64, RPSS "
                   "records, and a traced fast tune run")
             launches += reporting_path(torch, conv, card, unet_root, elr,
                                        work)
 
-            print("[10/14] batched lanes (the conv kernel's lane mode, "
+            print("[10/15] batched lanes (the conv kernel's lane mode, "
                   "lane_dispatch='vmap'), the one-card mesh and bf16 on cuda")
             t10 = time.perf_counter()
             lanes_n, lanes_abs, lane_times, lane_launches, idle = \
@@ -3237,7 +3439,7 @@ def main(argv=None):
             # phase 12 runs inside phase 11, before its suite: after the
             # suite's millions of launches torch.profiler loses device
             # events, and phase 12 (a) times with it
-            print("[11/14] (a) the eight configs' tuning grids at full width "
+            print("[11/15] (a) the eight configs' tuning grids at full width "
                   "on cuda: the kernel at every grid conv shape")
             t11 = time.perf_counter()
             grid_abs, grid_times, n_train, n_eval = grid_kernels(torch, conv,
@@ -3246,7 +3448,7 @@ def main(argv=None):
             t11 = time.perf_counter() - t11
             print(f"  (a) took {t11:.1f} s")
 
-            print("[12/14] IITM's 24 members at 64x64 on cuda: the kernel at "
+            print("[12/15] IITM's 24 members at 64x64 on cuda: the kernel at "
                   "the multi_predictor and stacked shapes, tune_IITM_full "
                   "--predictor multi_predictor at its full grid, --predictor "
                   "stacked train then load; and the weeks: `suite --week "
@@ -3259,12 +3461,12 @@ def main(argv=None):
             print(f"  phase 12 wall {time.perf_counter() - t12:.2f} s")
 
             # phase 14 times with torch.profiler: before the suite too
-            print("[14/14] the engine's programs: each lane's epoch and each "
+            print("[14/15] the engine's programs: each lane's epoch and each "
                   "eval forward a memoized CUDA graph, against the "
                   "uncaptured seam")
             prog_nums = programs_path(torch, conv, card)
 
-            print("[11/14] (b) the CLI's `suite --folds 1 --epochs 1 --check` "
+            print("[11/15] (b) the CLI's `suite --folds 1 --epochs 1 --check` "
                   "of the eight configs at full width on cuda")
             t11b = time.perf_counter()
             suite_launches = suite_path(torch, conv, card, work)
@@ -3272,11 +3474,20 @@ def main(argv=None):
             print(f"  phase 11 wall {t11 + time.perf_counter() - t11b:.2f} s")
 
             # last: after its millions of launches nothing is timed
-            print("[13/14] the sweep at the reference's depth on cuda: "
+            print("[13/15] the sweep at the reference's depth on cuda: "
                   "tune_ECMWF_com's fast grid at 10 folds, 100 epochs and "
                   "patience 15, serial then 'vmap'")
             depth_launches = depth_path(torch, conv, card, work)
             launches += depth_launches
+
+            print("[15/15] the port's measurement programs on cuda, each a "
+                  "subprocess: the bench's three execution models, the "
+                  "roofline and the lane regime; and the flag-matrix legs "
+                  "--standardize and --batch-size full")
+            (measure_launches, flags_abs, bench_rep, bench_last,
+             roof) = measure_path(torch, conv, card, work)
+            launches += sum(measure_launches.values())
+            max_abs = max(max_abs, flags_abs)
         check("jax" not in sys.modules, "jax was imported")
         jax_pkg = [m for m in sys.modules
                    if m == "s2s_ismr_tpu" or m.startswith("s2s_ismr_tpu.")]
@@ -3336,7 +3547,15 @@ def main(argv=None):
                                       ("first_dx_", iitm_train, "dx"))
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "iitm_launches": iitm_launches,
-        "depth_launches": depth_launches, **memo,
+        "depth_launches": depth_launches,
+        **{f"{k}_launches": v for k, v in measure_launches.items()},
+        "bench_value": bench_last["value"],
+        "bench_vs_baseline": bench_last["vs_baseline"],
+        **{f"bench_{k.replace('/', '_').replace('-', '_')}_steps_per_s":
+           v["steps_per_s"] for k, v in bench_rep["variants"].items()},
+        "roofline_per_op_us": roof["per_op_us"],
+        "roofline_elementwise_us": roof["elementwise_us"],
+        **memo,
         "families": FAMILY_COUNTS}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

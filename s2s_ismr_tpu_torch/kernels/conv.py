@@ -232,6 +232,12 @@ def _pick_tile(shape, a_streams=1, lanes=1):
     return costs.index(min(costs))
 
 
+def is_kernel_event(name):
+    """Whether a profiler's device event named `name` is a launch of this
+    kernel (every tile family's kernel is named conv3x3_*_kernel)."""
+    return "conv3x3_" in name and "_kernel" in name
+
+
 def launch_tile(shape, dx=False, elu=True, lanes=1):
     """The tile the wrapper launches for the conv of shape (N, H, W, C, O)
     (the forward's names) in the forward or the dx mode."""
