@@ -35,6 +35,8 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import profiling
+
 LANES = "lanes"
 
 
@@ -136,12 +138,15 @@ def replicate(tree, mesh: Mesh):
 
 def on_devices(fn, mesh: Mesh):
     """[fn(i, device) for each device of the mesh], each call in a host
-    thread of its own with that device current; exceptions propagate."""
+    thread of its own with that device current and the caller's call
+    record carried (its spans land there); exceptions propagate."""
+    rec = profiling.current()
+
     def run(i):
         dev = mesh.devices[i]
         ctx = (torch.cuda.device(dev) if dev.type == "cuda"
                else contextlib.nullcontext())
-        with ctx:
+        with ctx, profiling.carried(rec):
             return fn(i, dev)
     with ThreadPoolExecutor(max_workers=mesh.size) as ex:
         return list(ex.map(run, range(mesh.size)))

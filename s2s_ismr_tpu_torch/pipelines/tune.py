@@ -303,6 +303,32 @@ def _nn_result(cfg, filled, names, first, fm, labels, per_model_preds,
                     labels=labels, masks=fm, **kw)
 
 
+# the spans whose totals say where a sweep call's time went: under execute,
+# preparing lanes (captures included), the host's epoch work up to each
+# launch, the launches, the waits on the device and the best states read
+# out; under collect, the winners rebuilt and their forwards
+_EXECUTE_PARTS = (("lane prep", ("sweep.lane_models", "sweep.overrides",
+                                 "engine.load")),
+                  ("captures", ("programs.build",)),
+                  ("epoch host", ("engine.epoch",)),
+                  ("launch", ("programs.train_replay",)),
+                  ("wait", ("engine.wait",)), ("best", ("engine.best",)))
+_COLLECT_PARTS = (("winners", ("sweep.winners",)),
+                  ("forwards", ("programs.predict_replay",)))
+
+
+def _sweep_seconds(timings) -> str:
+    """A sweep call's execute and collect seconds, each with its parts
+    from the call's spans, for the log."""
+    def parts(group):
+        return ", ".join(
+            f"{name} {sum(timings['spans'].get(k, 0.0) for k in keys):.2f}s"
+            for name, keys in group)
+    return (f"{timings['lane_dispatch']}: execute "
+            f"{timings['execute_s']:.2f}s ({parts(_EXECUTE_PARTS)}), collect "
+            f"{timings['collect_s']:.2f}s ({parts(_COLLECT_PARTS)})")
+
+
 def run_nn_branch(cfg: PipelineConfig, bundles, log=print, timer=None,
                   training_type="tune", device=None, mesh=None) -> NNResult:
     """The NN branch of a tune run on `device` (None: the card): splits,
@@ -361,7 +387,7 @@ def run_nn_branch(cfg: PipelineConfig, bundles, log=print, timer=None,
                     res.predictions, filled[n].weeks, edges_pr))
             log(f"[nn] model {n}: sweep of {res.val_loss_table.shape[1]} "
                 f"trials x {fm.n_folds} folds in {time.time() - t0:.1f}s "
-                f"{res.timings}; "
+                f"({_sweep_seconds(res.timings)}); "
                 f"winners={[t.hparams() for t in res.best_trial]}")
             sweeps[n] = res
             preds_n = res.predictions

@@ -1,20 +1,159 @@
-"""Profiler traces and per-stage wall clock of a pipeline run.
+"""Profiler traces, per-stage wall clock and program spans of a run.
 
 The port's copy of s2s_ismr_tpu/profiling.py: `trace` is a torch.profiler
 context where the JAX package's is a jax.profiler one; `StageTimer` is a
-plain copy, so the port imports nothing of the JAX package.
+copy whose stages are also spans, so the port imports nothing of the JAX
+package.
+
+Spans (`span`) time the program's host work where it happens: the sweep,
+its lanes, their epochs and the programs' replays. They sit outside every
+captured CUDA graph body, at the replay boundary, so they hold under graph
+replay. Each `run_unet_sweep` call opens a call record (`call`), numbered
+from 0 in the process; every span opened inside it, in its thread or in a
+mesh's device threads that carry it (`carried`), adds its duration, its
+self time (the duration less what its child spans in the same thread
+cover) and one to its count under its name. The last `CALLS_KEPT` closed
+records are `calls()`. While a torch profiler records, each span is also a
+profiler range, so it shows in the profiler's trace on its clock, as an
+op: a function-scope RecordFunction, as an aten op's. A user-scope one
+(`torch.profiler.record_function`) would also put a range over the span's
+kernels on the device timeline, which a reader of device activity takes
+for device work.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
 from dataclasses import dataclass, field as dfield
 from typing import Dict, Optional
 
+import torch
+
 TRACE_FILE = "trace.json"
+
+CALLS_KEPT = 1024
+
+_calls = collections.deque(maxlen=CALLS_KEPT)
+_call_ids = itertools.count()
+_local = threading.local()      # .rec: the open call record, .stack: spans
+
+
+class CallRecord:
+    """One call's spans ({name: [total ns, self ns, count]}) and counters,
+    filled from every thread that carries it."""
+
+    def __init__(self, call_id):
+        self.id = call_id
+        self.spans = {}
+        self.counters = {}
+        self._lock = threading.Lock()
+
+    def add(self, name, total_ns, self_ns):
+        with self._lock:
+            s = self.spans.get(name)
+            if s is None:
+                self.spans[name] = [total_ns, self_ns, 1]
+            else:
+                s[0] += total_ns
+                s[1] += self_ns
+                s[2] += 1
+
+    def count(self, name, value):
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + value
+
+    def totals(self):
+        """{span name: total seconds}."""
+        with self._lock:
+            return {n: s[0] / 1e9 for n, s in self.spans.items()}
+
+    def as_dict(self):
+        with self._lock:
+            return {"id": self.id,
+                    "spans": {n: {"total_s": t / 1e9, "self_s": o / 1e9,
+                                  "count": c}
+                              for n, (t, o, c) in self.spans.items()},
+                    "counters": dict(self.counters)}
+
+
+class span:
+    """Times the block under `name` (`seconds` after it exits) and, inside
+    a call record, adds it there; a profiler range while one records."""
+
+    __slots__ = ("name", "ns", "_t0", "_child", "_rec", "_range")
+
+    def __init__(self, name):
+        self.name = name
+        self.ns = 0
+
+    @property
+    def seconds(self):
+        return self.ns / 1e9
+
+    def __enter__(self):
+        self._range = None
+        if torch.autograd._profiler_enabled():
+            self._range = torch._C._profiler._RecordFunctionFast(self.name)
+            self._range.__enter__()
+        self._rec = getattr(_local, "rec", None)
+        if self._rec is not None:
+            self._child = 0
+            _local.stack.append(self)
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.ns = time.perf_counter_ns() - self._t0
+        if self._rec is not None:
+            stack = _local.stack
+            stack.pop()
+            if stack:
+                stack[-1]._child += self.ns
+            self._rec.add(self.name, self.ns, self.ns - self._child)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+@contextlib.contextmanager
+def carried(rec):
+    """Inside the block this thread's spans add to `rec` (a record that
+    current() gave another thread), with a span stack of their own."""
+    saved = (getattr(_local, "rec", None), getattr(_local, "stack", None))
+    _local.rec, _local.stack = rec, []
+    try:
+        yield
+    finally:
+        _local.rec, _local.stack = saved
+
+
+@contextlib.contextmanager
+def call(name):
+    """A call record around the block, opened by the span `name`; yields
+    the record, which joins calls() on exit."""
+    rec = CallRecord(next(_call_ids))
+    try:
+        with carried(rec), span(name):
+            yield rec
+    finally:
+        _calls.append(rec)
+
+
+def current():
+    """This thread's open call record, or None."""
+    return getattr(_local, "rec", None)
+
+
+def calls():
+    """The closed call records kept, oldest first: dicts of id, spans
+    ({name: {total_s, self_s, count}}) and counters."""
+    return [r.as_dict() for r in list(_calls)]
 
 
 @dataclass
@@ -78,12 +217,12 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
+        sp = span(f"stage.{name}")
         try:
-            yield
+            with sp:
+                yield
         finally:
-            self.stages[name] = self.stages.get(name, 0.0) + (
-                time.perf_counter() - t0)
+            self.stages[name] = self.stages.get(name, 0.0) + sp.seconds
 
     def count(self, name: str, value: float):
         self.counters[name] = self.counters.get(name, 0.0) + value

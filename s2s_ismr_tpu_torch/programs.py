@@ -55,6 +55,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from . import profiling
 from .kernels import conv
 
 
@@ -272,9 +273,14 @@ class Program:
         """On a CUDA device (unless built uncaptured): warm up, then capture
         the body. The program's state after the warm-up must equal its
         state before it (the body's gates make the warm-up a no-op on
-        zero-weight inputs); `warm_state` lists what to check."""
-        if not self.capture:
-            return self
+        zero-weight inputs); `warm_state` lists what to check. In the span
+        `programs.build`."""
+        with profiling.span("programs.build"):
+            if self.capture:
+                self._capture()
+        return self
+
+    def _capture(self):
         dev = self.device
         stream, pool = _side(dev)
         with _CAPTURE, torch.cuda.device(dev):
@@ -314,7 +320,6 @@ class Program:
         _add("captures")
         _add("capture_s", t2 - t1)
         _add("build_s", t2 - t0)
-        return self
 
     def warm_state(self):
         """Tensors the warm-up must leave as they were."""
@@ -322,17 +327,19 @@ class Program:
 
     def run(self):
         """One run of the body: a replay of its graph, or the body itself
-        (on the CPU, or uncaptured on the card)."""
+        (on the CPU, or uncaptured on the card), in the span
+        `programs.{kind}_replay`."""
         _local.last = self
-        if self.graph is None:
-            if self.device.type == "cuda":
-                _add("uncaptured_cuda_runs")
-            self.body()
-            return
-        with torch.cuda.device(self.device):
-            self.graph.replay()
-        conv.replayed(*self.launches)
-        _add(f"{self.kind}_replays")
+        with profiling.span(f"programs.{self.kind}_replay"):
+            if self.graph is None:
+                if self.device.type == "cuda":
+                    _add("uncaptured_cuda_runs")
+                self.body()
+                return
+            with torch.cuda.device(self.device):
+                self.graph.replay()
+            conv.replayed(*self.launches)
+            _add(f"{self.kind}_replays")
 
     def bind(self, generators):
         """Before a lane's runs: a captured program copies each lane

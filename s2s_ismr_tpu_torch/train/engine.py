@@ -71,7 +71,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from .. import programs
+from .. import profiling, programs
 from ..kernels.conv import MAX_PIXELS
 from ..models.layers import Dropout, functional_batchnorm
 from .losses import categorical_crossentropy, masked_mse
@@ -426,42 +426,53 @@ def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
                program of its own (a test seam: the graph's yardstick)
     Returns the best state_dict (copies), the best val loss (0-d tensor)
     and the per-epoch val losses (epochs,), NaN past an early exit.
+    Spans: engine.load (to the first replay); per epoch engine.wait (the
+    stop check), engine.epoch (the batch order drawn and uploaded, up to
+    the launch) and the replay's; engine.best.
     """
     dev = x.device
     T = x.shape[0]
     bs = settings.batch_size
-    train_mask = torch.as_tensor(train_mask, dtype=torch.bool, device=dev)
-    val_mask = torch.as_tensor(val_mask, dtype=torch.bool, device=dev)
-    n_real = train_batches(int(train_mask.sum()), bs)
-    if init_variables is not None:
-        model.load_state_dict(init_variables)
-    vidx = _val_index(val_mask, settings)
-    val_rows = None if vidx is None else vidx.shape[0]
-    key = fold_key(model, x, y_onehot, n_real, val_rows, settings)
-    prog = _program(key, lambda capture: _FoldProgram(
-        model, x, y_onehot, val_rows, n_real, settings, capture),
-        _uncaptured)
-
-    hist = torch.full((settings.epochs,), float("nan"), device=dev)
     gens = [dropout_generator]
-    with prog.lock:
-        prog.load(x, y_onehot, train_mask, val_mask, vidx, lr,
-                  model.state_dict())
-        prog.bind(gens)
+    with contextlib.ExitStack() as held:
+        with profiling.span("engine.load"):
+            train_mask = torch.as_tensor(train_mask, dtype=torch.bool,
+                                         device=dev)
+            val_mask = torch.as_tensor(val_mask, dtype=torch.bool, device=dev)
+            n_real = train_batches(int(train_mask.sum()), bs)
+            if init_variables is not None:
+                model.load_state_dict(init_variables)
+            vidx = _val_index(val_mask, settings)
+            val_rows = None if vidx is None else vidx.shape[0]
+            key = fold_key(model, x, y_onehot, n_real, val_rows, settings)
+            prog = _program(key, lambda capture: _FoldProgram(
+                model, x, y_onehot, val_rows, n_real, settings, capture),
+                _uncaptured)
+            hist = torch.full((settings.epochs,), float("nan"), device=dev)
+            held.enter_context(prog.lock)
+            prog.load(x, y_onehot, train_mask, val_mask, vidx, lr,
+                      model.state_dict())
+            prog.bind(gens)
         try:
             for e in range(settings.epochs):
-                if settings.early_exit and e > 0 and bool(prog.stopped):
-                    break
-                prog.perm.copy_(
-                    torch.as_tensor(epoch_perms[e]) if epoch_perms is not None
-                    else torch.randperm(T, generator=generator))
+                if settings.early_exit and e > 0:
+                    with profiling.span("engine.wait"):
+                        stopped = bool(prog.stopped)
+                    if stopped:
+                        break
+                with profiling.span("engine.epoch"):
+                    prog.perm.copy_(
+                        torch.as_tensor(epoch_perms[e])
+                        if epoch_perms is not None
+                        else torch.randperm(T, generator=generator))
                 prog.run()
                 hist[e].copy_(prog.vloss)
         finally:
             prog.unbind(gens)
-        best = prog.best_state()
-        best_vloss = prog.best_vloss.clone()
-    model.load_state_dict(best)
+        with profiling.span("engine.best"):
+            best = prog.best_state()
+            best_vloss = prog.best_vloss.clone()
+            model.load_state_dict(best)
     return best, best_vloss, hist
 
 
@@ -682,86 +693,102 @@ def train_lanes(models, x, y_onehot, train_masks, val_masks, lrs,
     stop. Val losses run lane-batched in row chunks of row_chunk(x) rows
     per lane. When the epoch's program changes (a lane stopped), the
     state carries over into the next program.
+    Spans as train_fold's; engine.epoch includes a program change.
     """
     dev = x.device
     L, T = len(models), x.shape[0]
     bs = settings.batch_size
-    train_masks = torch.as_tensor(train_masks, dtype=torch.bool, device=dev)
-    val_masks = torch.as_tensor(val_masks, dtype=torch.bool, device=dev)
-    y_onehot = torch.as_tensor(y_onehot, device=dev)
-    init_variables = init_variables or [None] * L
-    epoch_perms = epoch_perms or [None] * L
-    dropout_generators = dropout_generators or [None] * L
-    n_real = [train_batches(int(n), bs) for n in train_masks.sum(1).cpu()]
-
-    for m, init in zip(models, init_variables):
-        if init is not None:
-            m.load_state_dict(init)
-    model = models[0]
-    flat = _stack_flat([list(m.parameters()) for m in models]).to(dev)
-    stats = _stack_flat([list(m.buffers()) for m in models]).to(dev)
-    lr_col = torch.tensor([float(v) for v in lrs], dtype=torch.float32,
-                          device=dev)[:, None]
-    vidx = _val_index(val_masks, settings)
-    val_rows = None if vidx is None else vidx.shape[1]
-    has_drop = _has_dropout(model)
-    base = lanes_key(model, x, y_onehot, n_real, val_rows, settings)
-    carry = [flat, stats, torch.zeros(L, dtype=torch.int32, device=dev),
-             torch.zeros_like(flat), torch.zeros_like(flat), flat.clone(),
-             stats.clone(), torch.full((L,), float("inf"), device=dev),
-             torch.zeros(L, dtype=torch.int32, device=dev),
-             torch.zeros(L, dtype=torch.bool, device=dev)]
-
     hist = torch.full((L, settings.epochs), float("nan"), device=dev)
     steps = epochs = 0
     prog = None
+
+    def use(active):
+        """The program of the epoch's active lanes, the state carried over
+        from the last one when it changes; its minibatch steps."""
+        nonlocal prog, carry
+        n_steps = max(n for n, a in zip(n_real, active) if a)
+        statics = (n_steps, tuple(active) if has_drop else None)
+        if prog is None or prog.statics != statics:
+            if prog is not None:
+                carry = [t.clone() for t in prog.carry()]
+                prog.unbind(dropout_generators)
+                prog.lock.release()
+                prog = None
+            new = _program(base + statics, lambda capture: _LanesProgram(
+                model, L, x, y_onehot, val_rows, n_real, *statics,
+                settings, capture), _uncaptured)
+            new.lock.acquire()
+            prog = new
+            prog.load(x, y_onehot, train_masks, val_masks, vidx, lr_col,
+                      carry)
+            prog.bind(dropout_generators)
+        return n_steps
+
     try:
-        for e in range(settings.epochs):
+        with profiling.span("engine.load"):
+            train_masks = torch.as_tensor(train_masks, dtype=torch.bool,
+                                          device=dev)
+            val_masks = torch.as_tensor(val_masks, dtype=torch.bool,
+                                        device=dev)
+            y_onehot = torch.as_tensor(y_onehot, device=dev)
+            init_variables = init_variables or [None] * L
+            epoch_perms = epoch_perms or [None] * L
+            dropout_generators = dropout_generators or [None] * L
+            n_real = [train_batches(int(n), bs)
+                      for n in train_masks.sum(1).cpu()]
+            for m, init in zip(models, init_variables):
+                if init is not None:
+                    m.load_state_dict(init)
+            model = models[0]
+            flat = _stack_flat([list(m.parameters()) for m in models]).to(dev)
+            stats = _stack_flat([list(m.buffers()) for m in models]).to(dev)
+            lr_col = torch.tensor([float(v) for v in lrs],
+                                  dtype=torch.float32, device=dev)[:, None]
+            vidx = _val_index(val_masks, settings)
+            val_rows = None if vidx is None else vidx.shape[1]
+            has_drop = _has_dropout(model)
+            base = lanes_key(model, x, y_onehot, n_real, val_rows, settings)
+            carry = [flat, stats, torch.zeros(L, dtype=torch.int32,
+                                              device=dev),
+                     torch.zeros_like(flat), torch.zeros_like(flat),
+                     flat.clone(), stats.clone(),
+                     torch.full((L,), float("inf"), device=dev),
+                     torch.zeros(L, dtype=torch.int32, device=dev),
+                     torch.zeros(L, dtype=torch.bool, device=dev)]
             active = [True] * L
+            use(active)
+        for e in range(settings.epochs):
             if settings.early_exit and e > 0:
-                active = (~prog.stopped).tolist()
+                with profiling.span("engine.wait"):
+                    active = (~prog.stopped).tolist()
                 if not any(active):
                     break
-            n_steps = max(n for n, a in zip(n_real, active) if a)
-            statics = (n_steps, tuple(active) if has_drop else None)
-            if prog is None or prog.statics != statics:
-                if prog is not None:
-                    carry = [t.clone() for t in prog.carry()]
-                    prog.unbind(dropout_generators)
-                    prog.lock.release()
-                    prog = None
-                new = _program(base + statics, lambda capture: _LanesProgram(
-                    model, L, x, y_onehot, val_rows, n_real, *statics,
-                    settings, capture), _uncaptured)
-                new.lock.acquire()
-                prog = new
-                prog.load(x, y_onehot, train_masks, val_masks, vidx, lr_col,
-                          carry)
-                prog.bind(dropout_generators)
-            prog.perms.copy_(torch.stack([
-                (torch.as_tensor(epoch_perms[i][e])
-                 if epoch_perms[i] is not None
-                 else torch.randperm(T, generator=generators[i]))
-                if active[i] else torch.arange(T) for i in range(L)]))
+            with profiling.span("engine.epoch"):
+                n_steps = use(active)
+                prog.perms.copy_(torch.stack([
+                    (torch.as_tensor(epoch_perms[i][e])
+                     if epoch_perms[i] is not None
+                     else torch.randperm(T, generator=generators[i]))
+                    if active[i] else torch.arange(T) for i in range(L)]))
             prog.run()
             hist[:, e].copy_(prog.hist_col)
             steps += n_steps
             epochs += 1
-        src = prog.carry() if prog is not None else carry
-        best_flat, best_stats, best_vloss = (t.clone() for t in src[5:8])
+        with profiling.span("engine.best"):
+            best_flat, best_stats, best_vloss = (
+                t.clone() for t in prog.carry()[5:8])
+            p_spec = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+            b_spec = [(n, tuple(b.shape)) for n, b in model.named_buffers()]
+            keys = list(model.state_dict())
+            best = []
+            for i in range(L):
+                state = {**_unflatten(best_flat[i], p_spec),
+                         **_unflatten(best_stats[i], b_spec)}
+                best.append({k: state[k].clone() for k in keys})
     finally:
         if prog is not None:
             prog.unbind(dropout_generators)
             prog.lock.release()
-
-    p_spec = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
-    b_spec = [(n, tuple(b.shape)) for n, b in model.named_buffers()]
-    keys = list(model.state_dict())
-    best = []
-    for i in range(L):
-        state = {**_unflatten(best_flat[i], p_spec),
-                 **_unflatten(best_stats[i], b_spec)}
-        best.append({k: state[k].clone() for k in keys})
     return LanesResult(best, best_vloss, hist, steps, epochs)
 
 

@@ -30,7 +30,6 @@ cnn/mlp models and of training_type='train': one lane per fold.
 from __future__ import annotations
 
 import itertools
-import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
@@ -39,6 +38,7 @@ import torch
 from torch import nn
 
 from .. import device as devices
+from .. import profiling
 from ..models import UNet, UNetConfig
 from ..parallel import mesh as pmesh
 from .engine import (TrainSettings, predict, train_batches, train_fold,
@@ -160,7 +160,8 @@ def _overrides(lane_overrides, f, trial_idx):
     from the test seam, or none."""
     if lane_overrides is None:
         return {}
-    init, perms = lane_overrides(f, trial_idx)
+    with profiling.span("sweep.overrides"):
+        init, perms = lane_overrides(f, trial_idx)
     return {"init_variables": init, "epoch_perms": perms}
 
 
@@ -171,11 +172,12 @@ def _lane_models(lanes, config, in_channels, base_seed, device):
     """Per lane (f, trial) of `lanes`: its U-Net on `device` drawn from its
     lane generator, the generator (batch orders next) and its dropout
     generator on `device`."""
-    gens = [lane_generator(base_seed, f, t.index) for f, t in lanes]
-    models = [UNet(config(t), in_channels, generator=g, device=device)
-              for (f, t), g in zip(lanes, gens)]
-    drops = [lane_generator(base_seed, f, t.index, device, stream=1)
-             for f, t in lanes]
+    with profiling.span("sweep.lane_models"):
+        gens = [lane_generator(base_seed, f, t.index) for f, t in lanes]
+        models = [UNet(config(t), in_channels, generator=g, device=device)
+                  for (f, t), g in zip(lanes, gens)]
+        drops = [lane_generator(base_seed, f, t.index, device, stream=1)
+                 for f, t in lanes]
     return models, gens, drops
 
 
@@ -190,7 +192,9 @@ def _train_serial(lanes, ctx, device):
         best, vloss, hist = train_fold(
             model, x, y[f], tm[f], vm[f], t.lr, gen, settings,
             dropout_generator=drop, **_overrides(overrides, f, t.index))
-        out.append((best, vloss, int(torch.isfinite(hist).sum())))
+        with profiling.span("engine.wait"):        # the lane's last epoch
+            n_ep = int(torch.isfinite(hist).sum())
+        out.append((best, vloss, n_ep))
     return out, 0, 0
 
 
@@ -207,7 +211,8 @@ def _train_batched(lanes, ctx, device):
         settings, init_variables=[o.get("init_variables") for o in ov],
         epoch_perms=[o.get("epoch_perms") for o in ov],
         dropout_generators=drops)
-    n_ep = torch.isfinite(res.hist).sum(1).tolist()
+    with profiling.span("engine.wait"):            # the lanes' last epoch
+        n_ep = torch.isfinite(res.hist).sum(1).tolist()
     return (list(zip(res.best, res.best_vloss, n_ep)), res.batched_steps,
             res.batched_epochs)
 
@@ -274,11 +279,26 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
     conv_backend, compute_dtype: the UNetConfig fields of every trial
     timings reports execute_s, collect_s and lane_dispatch ('serial',
     'vmap' or 'mesh'); a 'vmap' sweep also the batched loop's
-    batched_steps and batched_epochs, summed over buckets.
+    batched_steps and batched_epochs, summed over buckets; and the call's
+    spans ({name: total seconds}).
     train_steps counts every lane's own steps (its epochs run times its
     batches holding a training sample) in every mode; epochs_table holds
     each lane's epochs run, so a lane's steps and depth can be read apart.
+    The call is the span `sweep.call` and a call record (profiling.call)
+    with the counter `lane_steps` (= train_steps).
     """
+    with profiling.call("sweep.call") as rec:
+        res = _sweep(x, y_oh_folds, train_masks, val_masks, grid, epochs,
+                     base_seed, output, device, lane_overrides,
+                     lane_dispatch, mesh, conv_backend, compute_dtype)
+    rec.count("lane_steps", res.train_steps)
+    res.timings["spans"] = rec.totals()
+    return res
+
+
+def _sweep(x, y_oh_folds, train_masks, val_masks, grid, epochs, base_seed,
+           output, device, lane_overrides, lane_dispatch, mesh,
+           conv_backend, compute_dtype):
     if lane_dispatch not in _DISPATCH:
         raise ValueError(f"lane_dispatch={lane_dispatch!r}: one of "
                          f"{_DISPATCH}")
@@ -310,48 +330,51 @@ def run_unet_sweep(x, y_oh_folds, train_masks, val_masks,
                           conv_backend=conv_backend,
                           compute_dtype=compute_dtype)
 
-    t0 = time.perf_counter()
-    for key_, bucket in bucket_trials(trials).items():
-        settings = _settings(epochs, key_[0], grid.patience, val_masks,
-                             True, output)
-        lanes = [(f, t) for f in range(F) for t in bucket]
-        ctx = (x, y_oh_folds, tm, vm, config, settings, base_seed,
-               lane_overrides)
-        if mode == "mesh":
-            results = _mesh_lanes(lanes, ctx, mesh, "vmap" if
-                                  lane_dispatch == "vmap" else "scan", device)
-        else:
-            train = _train_batched if mode == "vmap" else _train_serial
-            results, steps, n_epochs = train(lanes, ctx, device)
-            batched_steps += steps
-            batched_epochs += n_epochs
-        for (f, t), (best, vloss, n_ep) in zip(lanes, results):
-            epochs_table[f, t.index] = n_ep
-            total_epochs += n_ep
-            total_steps += n_ep * train_batches(int(train_masks[f].sum()),
-                                                key_[0])
-            lane_state[f, t.index] = best
-            lane_vloss[f, t.index] = vloss
-    t_execute = time.perf_counter() - t0
+    with profiling.span("sweep.execute") as execute:
+        for key_, bucket in bucket_trials(trials).items():
+            settings = _settings(epochs, key_[0], grid.patience, val_masks,
+                                 True, output)
+            lanes = [(f, t) for f in range(F) for t in bucket]
+            ctx = (x, y_oh_folds, tm, vm, config, settings, base_seed,
+                   lane_overrides)
+            if mode == "mesh":
+                results = _mesh_lanes(lanes, ctx, mesh, "vmap" if
+                                      lane_dispatch == "vmap" else "scan",
+                                      device)
+            else:
+                train = _train_batched if mode == "vmap" else _train_serial
+                results, steps, n_epochs = train(lanes, ctx, device)
+                batched_steps += steps
+                batched_epochs += n_epochs
+            for (f, t), (best, vloss, n_ep) in zip(lanes, results):
+                epochs_table[f, t.index] = n_ep
+                total_epochs += n_ep
+                total_steps += n_ep * train_batches(
+                    int(train_masks[f].sum()), key_[0])
+                lane_state[f, t.index] = best
+                lane_vloss[f, t.index] = vloss
 
-    t0 = time.perf_counter()
-    keys = list(lane_vloss)
-    vl = torch.stack([lane_vloss[k] for k in keys]).cpu().numpy()
-    for (f, ti), v in zip(keys, vl):
-        val_table[f, ti] = v
-    # winner per fold: first minimum in product order (reference tie-break
-    # via `<`, training.py:108); np.argmin returns the first minimum
-    best_idx = np.argmin(val_table, axis=1)
-    best_trials = [trials[i] for i in best_idx]
-    winner_cfgs = [config(t) for t in best_trials]
-    winner_vars, preds = [], []
-    for f, t in enumerate(best_trials):
-        state = lane_state[f, t.index]
-        winner_vars.append(state)
-        model = build_winner(winner_cfgs[f], state, x.shape[-1], device)
-        preds.append(predict(model, None, x))
-    timings = {"execute_s": t_execute,
-               "collect_s": time.perf_counter() - t0,
+    with profiling.span("sweep.collect") as collect:
+        keys = list(lane_vloss)
+        vl = torch.stack([lane_vloss[k] for k in keys]).cpu().numpy()
+        for (f, ti), v in zip(keys, vl):
+            val_table[f, ti] = v
+        # winner per fold: first minimum in product order (reference
+        # tie-break via `<`, training.py:108); np.argmin returns the first
+        # minimum
+        best_idx = np.argmin(val_table, axis=1)
+        best_trials = [trials[i] for i in best_idx]
+        winner_cfgs = [config(t) for t in best_trials]
+        winner_vars, preds = [], []
+        for f, t in enumerate(best_trials):
+            state = lane_state[f, t.index]
+            winner_vars.append(state)
+            with profiling.span("sweep.winners"):
+                model = build_winner(winner_cfgs[f], state, x.shape[-1],
+                                     device)
+            preds.append(predict(model, None, x))
+    timings = {"execute_s": execute.seconds,
+               "collect_s": collect.seconds,
                "lane_dispatch": mode}
     if mode == "vmap":
         timings.update(batched_steps=batched_steps,
