@@ -189,6 +189,27 @@ line is printed:
      in-process: test RPSS finite on land, launches exact; then the kernel
      against float64 at the full-batch training shapes (N = T), each
      within the wrapper's N*H*W limit;
+  16. (run after phase 3) the train-mode BatchNorm kernels
+     (kernels/batchnorm.py, csrc/batchnorm.cu): (a) at every BatchNorm
+     shape of tune_ECMWF_com's (n_blocks 3, filters 2, 32x32) and
+     tune_IITM_full's (n_blocks 5, filters 3, 64x64) U-Nets at batch 16,
+     of every U-Net the eight configs' grids train (n_blocks 3-5, filters
+     2 and 3, batch 16 and 32, on 24x24, 32x32 and 64x64) and at the
+     MLP's (16, 2048) and (16, 512), weights with three padded rows and
+     all zero: y, the running statistics, dx, dscale and dbias of the
+     kernel path against the float64 plain version, each at most twice
+     the float32 plain version's error, a repeat bit-equal; (b) at the
+     benchmark's U-Nets' and the MLP's shapes, us per call in a CUDA-graph
+     chain of the kernel and the plain version, forward and backward,
+     beside the bound (x read and y written, or g and x read and dx
+     written, at 3.35 TB/s) and the launch floor (a one-element add in the
+     same chain), and the sums per model (each BatchNorm of a step once);
+and in every run of phases 4-6, 8-13 and 15 (d) (each CLI run, each
+suite config, each sweep, the realtime forwards) the BatchNorm kernels'
+launches equal a forward and a backward per train-mode BatchNorm of
+every one-lane training step (none for batched lanes, loads and eval
+forwards), and in phase 9's traced run the NN trace's BatchNorm kernel
+events equal those plus the warm-ups of the programs built in its window;
 then checks that neither jax nor any module of the JAX package
 (s2s_ismr_tpu) was loaded; prints the kernels JSON line (launches summed
 over phases 4, 5, 6, 8, 9, 10, 11, 12, 13 and 15; times and bounds summed
@@ -207,8 +228,15 @@ device time; phase 15's launches per program under bench_launches,
 roofline_launches, lane_regime_launches and flags_launches, the bench's
 value, vs_baseline and each mode's steps/s under bench_*, the roofline's
 per-op latencies under roofline_*; the tile family counts per phase and
-mode under families),
+mode under families; and a second entry, batchnorm_train, with the
+BatchNorm kernels' launches summed over the runs checked, their number,
+the programs' warm-up launches, phase 16's sums per model under
+<model>_{kernel,plain,bound}[_bwd]_us and the launch floor),
 the card line, then the result line {"ok": true, ...}.
+
+    python3 chip_smoke.py --batchnorm
+
+runs phases 1-2 and phase 16 alone.
 
     python3 chip_smoke.py --shapes-json PATH
 
@@ -235,6 +263,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -490,7 +519,7 @@ def main_path(torch, conv, card):
     check(b.x.shape[0] == 349 and b.y.shape == (349, 32, 32),
           f"unexpected bundle shapes x {b.x.shape} y {b.y.shape}")
 
-    conv.LAUNCHES = 0
+    reset_launches(conv)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = run_nn_branch(cfg, bundles, log=lambda s: print("  " + s),
@@ -511,6 +540,10 @@ def main_path(torch, conv, card):
           f"({sw.train_steps} steps, {sw.epochs_run} epochs, "
           f"{n_folds} winner forwards, {n_conv} convs per forward)")
     check(launches == expected, "launch count does not match the steps run")
+    per_step = bn_step_launches("unet", max(cfg.tuning.n_blocks))
+    n_bn = check_bn_launches("main path", sw.train_steps * per_step)
+    print(f"  BatchNorm kernel launches {n_bn} = {sw.train_steps} steps x "
+          f"{per_step}")
     check(np.isfinite(sw.val_loss_table).all(),
           f"non-finite val loss: {sw.val_loss_table}")
     land = b.valid_pixels()
@@ -549,9 +582,10 @@ CLI_PROGRAMS = {}        # programs.STATS just before the last cli_run
 
 
 def cli_run(torch, conv, argv):
-    """run.main(argv) in-process with the kernel's launch count set to 0
-    (and the programs' counts noted in CLI_PROGRAMS) just before; returns
-    (the run's TuneOutputs, wall s, launches)."""
+    """run.main(argv) in-process with the kernels' launch counts set to 0
+    (and the programs' counts noted in CLI_PROGRAMS) just before; checks
+    the BatchNorm kernel's launches against the run's steps; returns (the
+    run's TuneOutputs, wall s, conv launches)."""
     from s2s_ismr_tpu_torch import programs, run
     from s2s_ismr_tpu_torch.pipelines import tune
     outs = []
@@ -565,7 +599,7 @@ def cli_run(torch, conv, argv):
     global CLI_PROGRAMS
     CLI_PROGRAMS = dict(programs.STATS)
     try:
-        conv.LAUNCHES = 0
+        reset_launches(conv)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = run.main(argv)
@@ -575,6 +609,7 @@ def cli_run(torch, conv, argv):
     finally:
         tune.run_pipeline = real
     check(rc == 0 and len(outs) == 1, f"run.main({argv}) returned {rc}")
+    check_bn_launches(" ".join(argv), expected_bn_launches(torch, outs[0]))
     return outs[0], seconds, launches
 
 
@@ -702,6 +737,62 @@ def expected_launches(torch, out, load=False):
     return count, terms
 
 
+def bn_step_launches(arch, n_blocks=0):
+    """BatchNorm kernel launches of one one-lane optimizer step: a forward
+    and a backward per train-mode BatchNorm, 2 n_blocks of them in a U-Net
+    (bn_shapes), 2 in the MLP, none in the cnn."""
+    return 2 * {"unet": 2 * n_blocks, "mlp": 2, "cnn": 0}[arch]
+
+
+def expected_bn_launches(torch, out):
+    """BatchNorm kernel launches a run implies: bn_step_launches per
+    one-lane optimizer step, each lane of a sweep at its own trial's depth
+    (its epochs from the sweep's epochs_table, summed over the models of an
+    MME), a fixed training at the grid's first trial; none in a sweep of
+    batched lanes ('vmap': their BatchNorms are the plain ops), a load or
+    an eval forward (eval mode normalizes with the plain ops)."""
+    from s2s_ismr_tpu_torch.pipelines.tune import resolve_batch_sizes
+    from s2s_ismr_tpu_torch.train.engine import train_batches
+    from s2s_ismr_tpu_torch.train.sweep import enumerate_trials
+    cfg, nn = out.config, out.nn
+    if not nn.train_steps:
+        return 0
+    F, T = nn.labels.shape[:2]
+    trials = enumerate_trials(resolve_batch_sizes(cfg.tuning, T))
+    if cfg.architecture == "unet" and nn.sweeps:
+        return sum(
+            int(sw.epochs_table[f, t.index])
+            * train_batches(int(nn.masks.train[f].sum()), t.batch_size)
+            * bn_step_launches("unet", t.n_blocks)
+            for sw in nn.sweeps.values()
+            if sw.timings["lane_dispatch"] != "vmap"
+            for f in range(F) for t in trials)
+    return nn.train_steps * bn_step_launches(cfg.architecture,
+                                             trials[0].n_blocks)
+
+
+BN_RUNS = {}    # what -> BatchNorm kernel launches of the runs checked
+
+
+def check_bn_launches(what, want):
+    """batchnorm.LAUNCHES, set to 0 with conv.LAUNCHES just before the run
+    `what`, equals `want`: the kernels ran forward and backward at every
+    train-mode BatchNorm of every one-lane training step. Noted in
+    BN_RUNS; returns the count."""
+    from s2s_ismr_tpu_torch.kernels import batchnorm
+    got = batchnorm.LAUNCHES
+    check(got == want, f"{what}: BatchNorm kernel launches {got}, expected "
+          f"{want}")
+    BN_RUNS[what] = got
+    return got
+
+
+def reset_launches(conv):
+    """The conv and BatchNorm kernels' launch counts set to 0."""
+    from s2s_ismr_tpu_torch.kernels import batchnorm
+    conv.LAUNCHES = batchnorm.LAUNCHES = 0
+
+
 def check_programs(what, since, epochs, forwards):
     """Every training epoch and eval forward since the programs' counts
     were `since` (a copy of programs.STATS) ran as a replay of a memoized
@@ -794,12 +885,14 @@ def modes_path(torch, conv, card, tmp):
     total, rows = 0, {}
 
     def pipeline(cfg, out_root):
-        conv.LAUNCHES = 0
+        reset_launches(conv)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = tune.run_pipeline(cfg, out_root=out_root, log=lambda s: None,
                                 device="cuda")
         torch.cuda.synchronize()
+        check_bn_launches(f"run_pipeline {cfg.architecture}",
+                          expected_bn_launches(torch, out))
         return out, time.perf_counter() - t0, conv.LAUNCHES
 
     def report(name, root, run, suffix, load=False):
@@ -965,13 +1058,15 @@ def realtime_cli(run, realtime, argv):
 
 
 def timed(torch, conv, fn):
-    """fn() with the kernel's launch count set to 0 just before; returns
-    (result, paths, wall s, launches)."""
-    conv.LAUNCHES = 0
+    """fn() with the kernels' launch counts set to 0 just before (its
+    forwards are eval mode: no BatchNorm kernel launch); returns (result,
+    paths, wall s, conv launches)."""
+    reset_launches(conv)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res, paths = fn()
     torch.cuda.synchronize()
+    check_bn_launches("realtime forwards", 0)
     return res, paths, time.perf_counter() - t0, conv.LAUNCHES
 
 
@@ -1454,6 +1549,7 @@ def traced_run(torch, conv, card, work):
     """(d) of phase 9: the CLI's fast tune run with --epochs 1, first
     without, then with --profile; returns the conv launches of both."""
     import contextlib
+    from s2s_ismr_tpu_torch.kernels import batchnorm
     from s2s_ismr_tpu_torch.pipelines import tune
 
     argv = ["tune_ECMWF_com", "--synthetic", "--fast", "--epochs", "1"]
@@ -1472,7 +1568,7 @@ def traced_run(torch, conv, card, work):
             records.append(rec)
 
     tune.trace = recording
-    warm = conv.WARMUP_LAUNCHES
+    warm, bn_warm = conv.WARMUP_LAUNCHES, batchnorm.WARMUP_LAUNCHES
     try:
         out, seconds, launches = cli_run(torch, conv, argv + [
             "--profile", p, "--out", o])
@@ -1480,6 +1576,8 @@ def traced_run(torch, conv, card, work):
         tune.trace = real
     # a program built inside the traced window adds its warm-up's launches
     warm = conv.WARMUP_LAUNCHES - warm
+    bn_warm = batchnorm.WARMUP_LAUNCHES - bn_warm
+    bn_want = expected_bn_launches(torch, out)
     check([r.path for r in records] == [os.path.join(p, "trace.json"),
                                         os.path.join(p, "nn", "trace.json")],
           f"traces written: {[r.path for r in records]}")
@@ -1495,14 +1593,21 @@ def traced_run(torch, conv, card, work):
                    if str(e.get("cat", "")).lower() == "kernel"]
         n_conv = sum(conv.is_kernel_event(e.get("name", ""))
                      for e in kernels)
+        n_bn = sum(any(k in e.get("name", "") for k in BN_KERNELS)
+                   for e in kernels)
         print(f"  (d) {stage} trace {os.path.relpath(rec.path, work)}: "
               f"{rec.bytes} bytes, written in {rec.write_s:.3f} s, parsed "
               f"in {parse_s:.3f} s; {len(events)} events, {len(kernels)} "
-              f"CUDA kernel events, {n_conv} of the conv kernel")
+              f"CUDA kernel events, {n_conv} of the conv kernel, {n_bn} of "
+              f"the BatchNorm kernels")
         check(kernels, f"the {stage} trace holds no CUDA kernel event")
         want = expected + warm if stage == "NN" else 0
         check(n_conv == want, f"{stage} trace: {n_conv} conv kernel "
               f"events, expected {want} ({terms}; {warm} warm-up)")
+        want = bn_want + bn_warm if stage == "NN" else 0
+        check(n_bn == want, f"{stage} trace: {n_bn} BatchNorm kernel "
+              f"events, expected {want} ({bn_want} from the steps, "
+              f"{bn_warm} warm-up)")
     stages = {}
     for name, run_out in (("untraced", plain), ("traced", out)):
         with open(run_out.paths["profile"]) as fh:
@@ -1511,7 +1616,8 @@ def traced_run(torch, conv, card, work):
           f"s), stages {stages['traced']} (untraced {stages['untraced']}; "
           f"trace writing excluded) on {card}; conv launches {launches} = "
           f"expected ({terms}); the NN trace's conv events = those + {warm} "
-          f"warm-up launches of programs built in the traced window")
+          f"warm-up launches of programs built in the traced window, its "
+          f"BatchNorm kernel events {bn_want} + {bn_warm} likewise")
     return launches + plain_n
 
 
@@ -1696,12 +1802,17 @@ def lanes_path(torch, conv, card, work):
     # keep within its time with phase 12
     def sweep(mode, epochs=3, **kw):
         nonlocal launches
-        conv.LAUNCHES = conv.LANE_LAUNCHES = 0
+        reset_launches(conv)
+        conv.LANE_LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = run_unet_sweep(x, y_oh, fm.train, fm.val, grid, epochs=epochs,
                              device="cuda", lane_dispatch=mode, **kw)
         torch.cuda.synchronize()
+        # batched lanes' BatchNorms are the plain ops
+        check_bn_launches(f"phase 10 {mode} sweep {kw}", 0 if mode == "vmap"
+                          else res.train_steps * bn_step_launches(
+                              "unet", max(grid.n_blocks)))
         launches += conv.LAUNCHES
         return res, time.perf_counter() - t0, conv.LAUNCHES, \
             conv.LANE_LAUNCHES
@@ -1765,12 +1876,14 @@ def lanes_path(torch, conv, card, work):
     for use in (False, True):
         logs = []
         root = os.path.join(work, f"mesh_{use}")
-        conv.LAUNCHES = 0
+        reset_launches(conv)
         t1 = time.perf_counter()
         with deterministic_cudnn():
             outs[use] = tune.run_pipeline(
                 replace(cfg, epochs=2), out_root=root, log=logs.append,
                 device="cuda", use_mesh=use)
+        check_bn_launches(f"use_mesh={use}",
+                          expected_bn_launches(torch, outs[use]))
         launches += conv.LAUNCHES
         secs = time.perf_counter() - t1
         meshed = [s for s in logs if s.startswith("[mesh]")]
@@ -2203,9 +2316,9 @@ def grid_kernels(torch, conv, card):
 
 def run_suite(torch, conv, argv):
     """run.main(argv) for `suite` in-process on cuda, cuDNN deterministic,
-    its output captured; each config's kernel launch count set to 0 and
+    its output captured; each config's kernel launch counts set to 0 and
     the peak device memory reset just before its run_pipeline and read
-    just after. Returns (exit code, {config: (TuneOutputs, wall s,
+    just after (the BatchNorm kernel's checked against its steps). Returns (exit code, {config: (TuneOutputs, wall s,
     launches, peak bytes)}, suite_summary.json, captured stderr)."""
     import contextlib
     import io
@@ -2217,10 +2330,12 @@ def run_suite(torch, conv, argv):
     def recording(cfg, *args, **kw):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        conv.LAUNCHES = 0
+        reset_launches(conv)
         t0 = time.perf_counter()
         out = real(cfg, *args, **kw)
         torch.cuda.synchronize()
+        check_bn_launches(f"suite {cfg.name}[{cfg.week}]",
+                          expected_bn_launches(torch, out))
         per[cfg.name] = (out, time.perf_counter() - t0, conv.LAUNCHES,
                          torch.cuda.max_memory_allocated())
         return out
@@ -2764,12 +2879,13 @@ def depth_run(torch, conv, root):
     tune.run_unet_sweep = recording
     try:
         with deterministic_cudnn(), stage_memory(torch) as peaks:
-            conv.LAUNCHES = 0
+            reset_launches(conv)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = tune.run_pipeline(depth_config(), out_root=root,
                                     log=lambda s: None, device="cuda")
             torch.cuda.synchronize()
+            check_bn_launches("depth run", expected_bn_launches(torch, out))
             seconds = time.perf_counter() - t0
             launches = conv.LAUNCHES
     finally:
@@ -2898,10 +3014,11 @@ def depth_path(torch, conv, card, work):
           f"land per fold {means}")
     print_memory("depth run", peaks, card)
 
-    conv.LAUNCHES = 0
+    reset_launches(conv)
     with deterministic_cudnn():
         load = tune.run_pipeline(cfg, out_root=root, log=lambda s: None,
                                  device="cuda", training_type="load")
+    check_bn_launches("depth load", 0)
     n_load = conv.LAUNCHES
     want_load, load_terms = expected_launches(torch, load, load=True)
     check(n_load == want_load, f"load: launches {n_load}, expected "
@@ -2941,7 +3058,8 @@ def depth_path(torch, conv, card, work):
     (x, y, tm, vm, grid), kw = call
     k = DEPTH_VMAP_FOLDS
     n_conv = 4 * max(grid.n_blocks) + 2
-    conv.LAUNCHES = conv.LANE_LAUNCHES = 0
+    reset_launches(conv)
+    conv.LANE_LAUNCHES = 0
     since = dict(programs.STATS)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -2949,6 +3067,7 @@ def depth_path(torch, conv, card, work):
         rv = run_unet_sweep(x, y[:k], tm[:k], vm[:k], grid,
                             **{**kw, "lane_dispatch": "vmap"})
     torch.cuda.synchronize()
+    check_bn_launches("depth vmap", 0)   # batched lanes: the plain ops
     secs = time.perf_counter() - t1
     bs, be = rv.timings["batched_steps"], rv.timings["batched_epochs"]
     n_lane = conv.LANE_LAUNCHES
@@ -3201,6 +3320,244 @@ def measure_path(torch, conv, card, work):
     return launches, max_abs, bench_rep, last, roof
 
 
+# phase 16: the train-mode BatchNorm kernels (kernels/batchnorm.py)
+# (config, n_blocks, filters, side) of the benchmark's U-Nets, and the
+# MLP's two BatchNorm widths
+BN_UNETS = (("tune_ECMWF_com", 3, 2, 32), ("tune_IITM_full", 5, 3, 64))
+MLP_WIDTHS = (2048, 512)
+BN_CHAIN = 20           # calls per captured graph when timing
+BN_KERNELS = ("bn_train_fwd_kernel", "bn_train_bwd_kernel")
+# the side of a config's grid where it is not 32: tune_ECMWF_full's 23x24
+# padded to 24x24, tune_IITM_full's native 0.5 degree
+GRID_SIDES = {"tune_ECMWF_full": 24, "tune_IITM_full": 64}
+
+
+def bn_shapes(n_blocks, filters, side, batch=BATCH):
+    """The shapes the train-mode BatchNorms of a U-Net (apool, bn) see, in
+    forward order: each encoder block's, the bottleneck's, and the decoder's
+    but the last (its widths repeat the encoder's)."""
+    def width(k):
+        return filters * 4 * 2 ** (k - 1)
+    down = [(batch, side >> (k - 1), side >> (k - 1), width(k))
+            for k in range(1, n_blocks + 1)]
+    bott = (batch, side >> n_blocks, side >> n_blocks,
+            filters * 4 * 2 ** n_blocks)
+    return down + [bott] + down[:0:-1]
+
+
+def bn_main_shapes():
+    """{name: shapes} that phase 16 times: each of BN_UNETS's BatchNorm
+    shapes in forward order, and the MLP's (batch, width)."""
+    shapes = {name: bn_shapes(nb, f, side)
+              for name, nb, f, side in BN_UNETS}
+    shapes["mlp"] = [(BATCH, w) for w in MLP_WIDTHS]
+    return shapes
+
+
+def bn_grid():
+    """(n_blocks, filters, side, batch) of every U-Net that the eight
+    configs' tuning grids train, each once, in the configs' order."""
+    import itertools
+
+    from s2s_ismr_tpu_torch.pipelines import CONFIGS
+    grid = []
+    for name, cfg in CONFIGS.items():
+        g = cfg.tuning
+        for nb, f, b in itertools.product(g.n_blocks, g.n_filters,
+                                          g.batch_sizes):
+            t = (nb, f, GRID_SIDES.get(name, 32), b)
+            if t not in grid:
+                grid.append(t)
+    return grid
+
+
+def bn_check_shapes():
+    """The shapes phase 16 checks against float64: bn_main_shapes' and
+    every BatchNorm shape of bn_grid's U-Nets, each once, the largest
+    first."""
+    shapes = {s for ss in bn_main_shapes().values() for s in ss}
+    shapes |= {s for nb, f, side, b in bn_grid()
+               for s in bn_shapes(nb, f, side, b)}
+    return sorted(shapes, key=lambda s: (-math.prod(s), s))
+
+
+def bn_weights(torch, n, case):
+    """Sample weights of a case: 'padded' (the last three rows padding),
+    'zero' (a batch of padding only) or 'ones'."""
+    if case == "zero":
+        return torch.zeros(n)
+    w = torch.ones(n)
+    if case == "padded":
+        w[-3:] = 0.0
+    return w
+
+
+def bn_run(torch, fn, x, w, scale, bias, mean, var, g, dtype):
+    """(y, running mean, running var, dx, dscale, dbias) of fn, the
+    train-mode forward (batchnorm_train's signature), in `dtype`."""
+    xs, ss, bs = (t.detach().to(dtype, copy=True).requires_grad_()
+                  for t in (x, scale, bias))
+    ms, vs = (t.to(dtype, copy=True) for t in (mean, var))
+    y = fn(xs, w.to(dtype), ss, bs, ms, vs)
+    dx, ds, db = torch.autograd.grad(y, (xs, ss, bs), g.to(dtype))
+    return y.detach(), ms, vs, dx, ds, db
+
+
+BN_OUTPUTS = ("y", "mean", "var", "dx", "dscale", "dbias")
+
+
+def bn_errors(torch, shape, case, seed=0, device="cuda"):
+    """The kernel path (batchnorm_train on `device`) and the float32 plain
+    version against the float64 plain version at `shape` (channel last)
+    with weights `case`: ({output: (kernel err, plain err)}, the kernel
+    path's outputs, a second run's). Inputs: x ~ 2 N(0, 1) + 0.5, scale in
+    [0.5, 1.5], bias, running statistics and g drawn from `seed`."""
+    from s2s_ismr_tpu_torch.kernels import batchnorm as bn
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    x = 2.0 * torch.randn(shape, generator=gen) + 0.5
+    scale = 0.5 + torch.rand(c, generator=gen)
+    bias = 0.1 * torch.randn(c, generator=gen)
+    mean = 0.1 * torch.randn(c, generator=gen)
+    var = 0.5 + torch.rand(c, generator=gen)
+    g = torch.randn(shape, generator=gen) / (x.numel() // c) ** 0.5
+    args = [t.to(device) for t in (x, bn_weights(torch, shape[0], case),
+                                   scale, bias, mean, var, g)]
+    want = bn_run(torch, bn.batchnorm_train_plain, *args,
+                  torch.float64)
+    plain = bn_run(torch, bn.batchnorm_train_plain, *args,
+                   torch.float32)
+    got = bn_run(torch, bn.batchnorm_train, *args, torch.float32)
+    again = bn_run(torch, bn.batchnorm_train, *args, torch.float32)
+    errs = {name: (float((k.double() - r).abs().max()),
+                   float((p.double() - r).abs().max()))
+            for name, k, p, r in zip(BN_OUTPUTS, got, plain, want)}
+    return errs, got, again
+
+
+def bn_check(torch, shapes):
+    """(a) of phase 16: bn_errors at every shape, weights padded and zero:
+    each output's kernel error at most twice the float32 plain version's,
+    a repeat bit-equal. Returns the largest kernel / plain ratio."""
+    worst = 0.0
+    for shape in shapes:
+        for case in ("padded", "zero"):
+            errs, got, again = bn_errors(torch, shape, case)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"batchnorm kernel {shape} {case}: a repeat differs")
+            for name, (k, p) in errs.items():
+                check(k <= 2 * p, f"batchnorm kernel {shape} {case} "
+                      f"{name}: error {k:.3e} against float64, above twice "
+                      f"the float32 plain version's {p:.3e}")
+                worst = max(worst, k / p if p else 0.0)
+            print(f"  {shape} {case}: " + ", ".join(
+                f"{n} {k:.2e} ({p:.2e})" for n, (k, p) in errs.items()))
+    return worst
+
+
+def chain_us(torch, fn, reps=10):
+    """Device time per call of fn in a chain: BN_CHAIN calls captured in
+    one CUDA graph (after a warm-up on a side stream), `reps` replays
+    between CUDA events, over the calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(BN_CHAIN):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / (reps * BN_CHAIN)
+
+
+def bn_inputs(torch, shape):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    c = shape[-1]
+    x = torch.randn(shape, device="cuda", generator=gen)
+    ones = torch.ones(c, device="cuda")
+    return (x, bn_weights(torch, shape[0], "padded").cuda(), ones.clone(),
+            torch.zeros(c, device="cuda"), torch.zeros(c, device="cuda"),
+            ones.clone(), torch.randn(shape, device="cuda", generator=gen))
+
+
+def bn_times(torch, shape):
+    """(b) of phase 16 at one shape: us per call in a graph chain of the
+    kernel and of the plain version, forward and backward (a backward is
+    its forward and backward less the forward), and the bound (x read and
+    y written, g and x read and dx written, at 3.35 TB/s)."""
+    from s2s_ismr_tpu_torch.kernels import batchnorm as bn
+    from s2s_ismr_tpu_torch.kernels.conv_bench import PEAK_BYTES
+    x, w, scale, bias, mean, var, g = bn_inputs(torch, shape)
+    xs, ss, bs = (t.clone().requires_grad_() for t in (x, scale, bias))
+
+    def both(fn):
+        def run():
+            y = fn(xs, w, ss, bs, mean, var)
+            torch.autograd.grad(y, (xs, ss, bs), g)
+        return run
+
+    def fwd(fn):
+        return lambda: fn(x, w, scale, bias, mean, var)
+
+    t = {}
+    for name, fn in (("kernel", bn.batchnorm_train),
+                     ("plain", bn.batchnorm_train_plain)):
+        t[name] = chain_us(torch, fwd(fn))
+        t[f"{name}_bwd"] = chain_us(torch, both(fn)) - t[name]
+    t["bound"] = 2 * 4 * x.numel() / PEAK_BYTES * 1e6
+    t["bound_bwd"] = 3 * 4 * x.numel() / PEAK_BYTES * 1e6
+    return t
+
+
+def batchnorm_path(torch, card):
+    """Phase 16: the train-mode BatchNorm kernels at the main path's
+    shapes: (a) bn_check at bn_check_shapes(); (b) bn_times at the shapes
+    of bn_main_shapes() and summed per model (each U-Net's BatchNorms in
+    forward order; a step launches each shape once forward and once
+    backward), beside one tiny elementwise op's chain time (the launch
+    floor). Returns the sums {model: {key: us}} and the floor."""
+    t0 = time.perf_counter()
+    checked = bn_check_shapes()
+    worst = bn_check(torch, checked)
+    print(f"  (a) {len(checked)} shapes (the benchmark's U-Nets, the MLP "
+          f"and the {len(bn_grid())} U-Nets of the eight configs' grids) x "
+          f"2 weight cases: every output within twice the float32 plain "
+          f"version's error (largest ratio {worst:.2f}), repeats bit-equal")
+    shapes = bn_main_shapes()
+    unique = sorted({s for ss in shapes.values() for s in ss},
+                    key=lambda s: -len(s))
+    one = torch.zeros(1, device="cuda")
+    floor = chain_us(torch, lambda: one.add_(1.0))
+    print(f"  (b) us per call in a graph chain of {BN_CHAIN} (on {card}); "
+          f"launch floor (a one-element add) {floor:.2f} us")
+    per = {}
+    for shape in unique:
+        t = per[shape] = bn_times(torch, shape)
+        print(f"  {shape}: kernel {t['kernel']:.2f} / {t['kernel_bwd']:.2f}, "
+              f"plain {t['plain']:.2f} / {t['plain_bwd']:.2f}, bound "
+              f"{t['bound']:.3f} / {t['bound_bwd']:.3f}")
+    keys = ("kernel", "kernel_bwd", "plain", "plain_bwd", "bound",
+            "bound_bwd")
+    sums = {name: {k: sum(per[s][k] for s in ss) for k in keys}
+            for name, ss in shapes.items()}
+    for name, s in sums.items():
+        print(f"  {name} ({len(shapes[name])} BatchNorms a step): forward "
+              f"kernel {s['kernel']:.2f} us, plain {s['plain']:.2f}, bound "
+              f"{s['bound']:.3f}; backward kernel {s['kernel_bwd']:.2f}, "
+              f"plain {s['plain_bwd']:.2f}, bound {s['bound_bwd']:.3f}")
+    print(f"  phase 16 wall {time.perf_counter() - t0:.2f} s")
+    return sums, floor
+
+
 def elr_cuda_vs_cpu(torch):
     """The ELR branch of the full tune_ECMWF_com and tune_2MME configs
     (10 folds) on cuda and on the CPU in this process; returns the cuda
@@ -3307,25 +3664,27 @@ def main(argv=None):
     ap.add_argument("--write-depth", metavar="PATH", default=None,
                     help="only run phase 13's (a) twice and write its "
                          "expectations file to PATH")
+    ap.add_argument("--batchnorm", action="store_true",
+                    help="only run phase 16 (the BatchNorm kernels)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
         return 2
-    from s2s_ismr_tpu_torch.kernels import _build, conv
+    from s2s_ismr_tpu_torch.kernels import _build, batchnorm, conv
     from s2s_ismr_tpu_torch.kernels import conv_bench as bench
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     try:
-        print("[1/15] device")
+        print("[1/16] device")
         card = card_line()
         print(f"  {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
               f"torch {torch.__version__} cuda {torch.version.cuda}")
 
-        print("[2/15] build")
+        print("[2/16] build")
         info = _build.build()
         _build.library()
         print(f"  built {os.path.relpath(info['path'])} in "
@@ -3348,17 +3707,21 @@ def main(argv=None):
                   f"12 time to {args.shapes_json}")
             return 0
         if args.write_expected:
-            print(f"[11/15] (b) only: the suite twice -> "
+            print(f"[11/16] (b) only: the suite twice -> "
                   f"{args.write_expected}")
             write_expected(torch, conv, card, args.write_expected)
             return 0
         if args.write_depth:
-            print(f"[13/15] (a) only: the depth run twice -> "
+            print(f"[13/16] (a) only: the depth run twice -> "
                   f"{args.write_depth}")
             write_depth(torch, conv, card, args.write_depth)
             return 0
+        if args.batchnorm:
+            print("[16/16] only: the train-mode BatchNorm kernels")
+            batchnorm_path(torch, card)
+            return 0
 
-        print("[3/15] kernel vs plain (TF32 off), batch 16")
+        print("[3/16] kernel vs plain (TF32 off), batch 16")
         shapes = bench.slice_shapes(torch, (2, 3), BATCH)
         max_abs = kernel_vs_plain(torch, conv, shapes)
         print("  the cnn's shapes (act none) and the multi_predictor first "
@@ -3393,41 +3756,45 @@ def main(argv=None):
                     times[mode][key] = times[mode].get(key, 0.0) + v
         print(f"  max abs err {max_abs:.3e}")
 
-        print("[4/15] main path: tune_ECMWF_com NN branch, fast variant")
+        print("[16/16] the train-mode BatchNorm kernels against float64 and "
+              "timed at the main path's shapes")
+        bn_sums, bn_floor = batchnorm_path(torch, card)
+
+        print("[4/16] main path: tune_ECMWF_com NN branch, fast variant")
         launches, main_abs = main_path(torch, conv, card)
         max_abs = max(max_abs, main_abs)
 
         with tempfile.TemporaryDirectory() as work:
             unet_root = os.path.join(work, "tune")
-            print("[5/15] main path: `python -m s2s_ismr_tpu_torch.run "
+            print("[5/16] main path: `python -m s2s_ismr_tpu_torch.run "
                   "tune_ECMWF_com --synthetic --fast` in-process on cuda")
             launches += pipeline_path(torch, conv, card, unet_root)
 
-            print("[6/15] the other run modes of tune_ECMWF_com (fast "
+            print("[6/16] the other run modes of tune_ECMWF_com (fast "
                   "variant) in-process on cuda")
             modes_launches, modes_abs = modes_path(torch, conv, card,
                                                    os.path.join(work, "modes"))
             launches += modes_launches
             max_abs = max(max_abs, modes_abs)
 
-            print("[7/15] ELR branch of the full tune_ECMWF_com and tune_2MME "
+            print("[7/16] ELR branch of the full tune_ECMWF_com and tune_2MME "
                   "(10 folds), cuda vs CPU")
             elr = elr_cuda_vs_cpu(torch)
 
-            print("[8/15] realtime path on cuda: the CLI's `realtime` on "
+            print("[8/16] realtime path on cuda: the CLI's `realtime` on "
                   "phase 5's winners, the cnn's of phase 6, and the "
                   "operational forecast on a fake cache")
             launches += realtime_path(
                 torch, conv, card, unet_root,
                 os.path.join(work, "modes", "cnn"), work)
 
-            print("[9/15] reporting and profiler traces on cuda: the CLI's "
+            print("[9/16] reporting and profiler traces on cuda: the CLI's "
                   "`accs`, REL/BSS/RES and CC/ACC against float64, RPSS "
                   "records, and a traced fast tune run")
             launches += reporting_path(torch, conv, card, unet_root, elr,
                                        work)
 
-            print("[10/15] batched lanes (the conv kernel's lane mode, "
+            print("[10/16] batched lanes (the conv kernel's lane mode, "
                   "lane_dispatch='vmap'), the one-card mesh and bf16 on cuda")
             t10 = time.perf_counter()
             lanes_n, lanes_abs, lane_times, lane_launches, idle = \
@@ -3439,7 +3806,7 @@ def main(argv=None):
             # phase 12 runs inside phase 11, before its suite: after the
             # suite's millions of launches torch.profiler loses device
             # events, and phase 12 (a) times with it
-            print("[11/15] (a) the eight configs' tuning grids at full width "
+            print("[11/16] (a) the eight configs' tuning grids at full width "
                   "on cuda: the kernel at every grid conv shape")
             t11 = time.perf_counter()
             grid_abs, grid_times, n_train, n_eval = grid_kernels(torch, conv,
@@ -3448,7 +3815,7 @@ def main(argv=None):
             t11 = time.perf_counter() - t11
             print(f"  (a) took {t11:.1f} s")
 
-            print("[12/15] IITM's 24 members at 64x64 on cuda: the kernel at "
+            print("[12/16] IITM's 24 members at 64x64 on cuda: the kernel at "
                   "the multi_predictor and stacked shapes, tune_IITM_full "
                   "--predictor multi_predictor at its full grid, --predictor "
                   "stacked train then load; and the weeks: `suite --week "
@@ -3461,12 +3828,12 @@ def main(argv=None):
             print(f"  phase 12 wall {time.perf_counter() - t12:.2f} s")
 
             # phase 14 times with torch.profiler: before the suite too
-            print("[14/15] the engine's programs: each lane's epoch and each "
+            print("[14/16] the engine's programs: each lane's epoch and each "
                   "eval forward a memoized CUDA graph, against the "
                   "uncaptured seam")
             prog_nums = programs_path(torch, conv, card)
 
-            print("[11/15] (b) the CLI's `suite --folds 1 --epochs 1 --check` "
+            print("[11/16] (b) the CLI's `suite --folds 1 --epochs 1 --check` "
                   "of the eight configs at full width on cuda")
             t11b = time.perf_counter()
             suite_launches = suite_path(torch, conv, card, work)
@@ -3474,13 +3841,13 @@ def main(argv=None):
             print(f"  phase 11 wall {t11 + time.perf_counter() - t11b:.2f} s")
 
             # last: after its millions of launches nothing is timed
-            print("[13/15] the sweep at the reference's depth on cuda: "
+            print("[13/16] the sweep at the reference's depth on cuda: "
                   "tune_ECMWF_com's fast grid at 10 folds, 100 epochs and "
                   "patience 15, serial then 'vmap'")
             depth_launches = depth_path(torch, conv, card, work)
             launches += depth_launches
 
-            print("[15/15] the port's measurement programs on cuda, each a "
+            print("[15/16] the port's measurement programs on cuda, each a "
                   "subprocess: the bench's three execution models, the "
                   "roofline and the lane regime; and the flag-matrix legs "
                   "--standardize and --batch-size full")
@@ -3556,7 +3923,14 @@ def main(argv=None):
         "roofline_per_op_us": roof["per_op_us"],
         "roofline_elementwise_us": roof["elementwise_us"],
         **memo,
-        "families": FAMILY_COUNTS}]}))
+        "families": FAMILY_COUNTS}, {
+        "name": "batchnorm_train", "route": "cuda",
+        "source": "s2s_ismr_tpu_torch/csrc/batchnorm.cu", "replaces": None,
+        "launches": sum(BN_RUNS.values()), "runs_checked": len(BN_RUNS),
+        "warmup_launches": batchnorm.WARMUP_LAUNCHES,
+        "launch_floor_us": bn_floor,
+        **{f"{model}_{key}_us": v for model, sums in bn_sums.items()
+           for key, v in sums.items()}}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

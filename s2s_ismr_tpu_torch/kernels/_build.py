@@ -89,6 +89,8 @@ def library() -> ctypes.CDLL:
         lib.s2s_conv3x3_tile.restype = ci
         lib.s2s_conv3x3_chunk.argtypes = []
         lib.s2s_conv3x3_chunk.restype = ci
+        lib.s2s_batchnorm_f32.argtypes = [ci] + [vp] * 12 + [ci] * 5 + [vp]
+        lib.s2s_batchnorm_f32.restype = ci
         lib.s2s_cuda_error_string.argtypes = [ci]
         lib.s2s_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import conv3x3_bias_act
+from ..kernels import batchnorm, conv3x3_bias_act
 
 
 def glorot_uniform_(t, generator=None):
@@ -142,11 +142,11 @@ class BatchNorm(nn.Module):
     running averages are left as they are when the weights sum to 0. In
     train mode the running buffers are updated in place, or, inside
     `functional_batchnorm`, the updated values are recorded for the caller
-    and the buffers are left alone.
+    and the buffers are left alone. The train-mode forward and its
+    gradient are kernels/batchnorm.py's: one kernel launch each on a CUDA
+    tensor, the plain tensor ops on the CPU and inside
+    `functional_batchnorm` (batched lanes).
     """
-
-    momentum = 0.99
-    epsilon = 1e-3
 
     def __init__(self, features, device=None):
         super().__init__()
@@ -157,32 +157,20 @@ class BatchNorm(nn.Module):
         self.updates = None     # (dict, name) inside functional_batchnorm
 
     def forward(self, x, train: bool, sample_weight=None):
-        if train:
-            if sample_weight is None:
-                sample_weight = x.new_ones(x.shape[0])
-            axes = tuple(range(x.ndim - 1))
-            w = sample_weight.to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
-            per_sample = x.numel() // x.shape[0] // x.shape[-1]
-            tot = torch.clamp(w.sum() * per_sample, min=1.0)
-            mean = (x * w).sum(axes) / tot
-            var = (w * (x - mean) ** 2).sum(axes) / tot
-            with torch.no_grad():
-                m, has_data = self.momentum, w.sum() > 0
-                new_mean = torch.where(
-                    has_data, m * self.mean + (1 - m) * mean, self.mean)
-                new_var = torch.where(
-                    has_data, m * self.var + (1 - m) * var, self.var)
-                if self.updates is None:
-                    self.mean.copy_(new_mean)
-                    self.var.copy_(new_var)
-                else:
-                    updates, name = self.updates
-                    updates[f"{name}.mean"] = new_mean
-                    updates[f"{name}.var"] = new_var
-        else:
-            mean, var = self.mean, self.var
-        inv = torch.rsqrt(var + self.epsilon)
-        return (x - mean) * inv * self.scale + self.bias
+        if not train:
+            return batchnorm.normalize(x, self.mean, self.var, self.scale,
+                                       self.bias)
+        if sample_weight is None:
+            sample_weight = x.new_ones(x.shape[0])
+        if self.updates is None:
+            return batchnorm.batchnorm_train(x, sample_weight, self.scale,
+                                             self.bias, self.mean, self.var)
+        y, new_mean, new_var = batchnorm.batchnorm_train_functional(
+            x, sample_weight, self.scale, self.bias, self.mean, self.var)
+        updates, name = self.updates
+        updates[f"{name}.mean"] = new_mean
+        updates[f"{name}.var"] = new_var
+        return y
 
 
 @contextlib.contextmanager

@@ -29,9 +29,11 @@ buffers allocated outside the capture, so nothing in the pool outlives a
 replay, and programs never run at once on one device. The conv kernel's
 launches during the warm-up count in `conv.WARMUP_LAUNCHES`, those during
 capture nowhere; each replay adds the launches the program captured to
-`conv.LAUNCHES`. A program's device generators (dropout) are registered
-with its graph: a lane's generator state is copied into them before its
-replays and back after, so replay j draws what eager epoch j draws.
+`conv.LAUNCHES`. The BatchNorm kernels' count likewise in
+`batchnorm.WARMUP_LAUNCHES` and `batchnorm.LAUNCHES`. A program's device
+generators (dropout) are registered with its graph: a lane's generator
+state is copied into them before its replays and back after, so replay j
+draws what eager epoch j draws.
 
 There is no fallback: a capture or replay that fails raises. A program
 built with capture=False runs its body uncaptured on the card too; only
@@ -56,7 +58,7 @@ import torch
 from torch import nn
 
 from . import profiling
-from .kernels import conv
+from .kernels import batchnorm, conv
 
 
 class _ProgramMemo:
@@ -263,6 +265,7 @@ class Program:
         self.graph = None
         self.generators = []
         self.launches = (0, 0)       # conv launches, lane-mode launches
+        self.bn_launches = 0         # BatchNorm kernel launches
 
     def body(self, steps=None):
         """One run over the buffers; `steps` cuts a training epoch to its
@@ -287,9 +290,11 @@ class Program:
             before = [t.clone() for t in self.warm_state()]
             stream.wait_stream(torch.cuda.current_stream(dev))
             t0 = time.perf_counter()
-            with torch.cuda.stream(stream), conv.tally(stream) as warm:
+            with torch.cuda.stream(stream), conv.tally(stream) as warm, \
+                    batchnorm.tally(stream) as bn_warm:
                 self.body(steps=1)
             conv.add_warmup(len(warm))
+            batchnorm.add_warmup(len(bn_warm))
             stream.synchronize()
             after = self.warm_state()
             if not all(torch.equal(a, b) for a, b in zip(before, after)):
@@ -301,7 +306,8 @@ class Program:
                 if g is not None:
                     graph.register_generator_state(g)
             t1 = time.perf_counter()
-            with torch.cuda.stream(stream), conv.tally(stream) as cap:
+            with torch.cuda.stream(stream), conv.tally(stream) as cap, \
+                    batchnorm.tally(stream) as bn_cap:
                 graph.capture_begin(pool=pool,
                                     capture_error_mode="thread_local")
                 try:
@@ -317,6 +323,7 @@ class Program:
             t2 = time.perf_counter()
         self.graph = graph
         self.launches = (len(cap), sum(n > 1 for n in cap))
+        self.bn_launches = len(bn_cap)
         _add("captures")
         _add("capture_s", t2 - t1)
         _add("build_s", t2 - t0)
@@ -339,6 +346,7 @@ class Program:
             with torch.cuda.device(self.device):
                 self.graph.replay()
             conv.replayed(*self.launches)
+            batchnorm.replayed(self.bn_launches)
             _add(f"{self.kind}_replays")
 
     def bind(self, generators):
