@@ -21,10 +21,22 @@ forward, and compares:
              although the reference's val losses of the two lie more than
              WINNER_MARGIN apart (relative): an exact comparison.
 
+The same four numbers, named with the prefix EARLY, are read from the
+set-up call: the one-epoch sweep call through the window's own entry and
+programs (the epoch graph the window replays), whose lanes stop after
+their first epoch. Its PAIRS preselected folds are compared in full, each
+lane's one epoch trained again by the reference. Those numbers are read
+before float32 rounding has grown over a lane's later steps, where a
+lane's best val loss after a hundred Adam steps moves as far under a
+change of float32 algorithm as under the control's TF32. They are read
+only in a cell whose file gives one of them a limit.
+
 A number is compared where the cell's file gives its limit, set from the
 readings in PERF.md: the lower, the most that sound runs read over a dozen
-seeds or more, and the upper, the least the lower-precision control reads.
-A number whose control does not read three times its sound runs has no
+seeds or more, and the upper, the least the lower-precision control reads,
+or where the control does not read three times the lower, the least that a
+planted fault of the training path reads ten times the lower or more (a
+state left unchanged: three times). A number that neither separates has no
 limit in that cell: it is printed, not compared.
 The reference runs in float32 with TF32 off in cuDNN and matmuls, and
 cuDNN deterministic. The lower-precision control is the same reference
@@ -47,6 +59,8 @@ PAIRS = 3
 # lane's val loss in sound runs on the H100 (9.46e-5), a sixth of the
 # least gap between the trials of a fold that they met (5.9e-3)
 WINNER_MARGIN = 1e-3
+# the prefix of the numbers read from the set-up call, and its call index
+EARLY, SETUP_CALL = "epoch1_", -1
 
 
 def draw(seed, tag, n, k):
@@ -123,9 +137,14 @@ def control_answers(inputs, kept, epochs, patience):
         _restore(flags)
 
 
-def compare(inputs, kept, answers, epochs, patience, log=print):
-    """{name: reading} over the drawn pairs; answers[(call, fold)] = (val
-    losses per trial, winner index, predictions)."""
+def early(cell):
+    """Whether the cell's limits name a number of the set-up call."""
+    return any(k.startswith(EARLY) for k in cell["limits"])
+
+
+def compare(inputs, kept, answers, epochs, patience, log=print, prefix=""):
+    """{prefix + name: reading} over the drawn pairs; answers[(call,
+    fold)] = (val losses per trial, winner index, predictions)."""
     flags = _precision(False)
     vgaps, pgap, misses = [], 0.0, 0
     try:
@@ -145,6 +164,7 @@ def compare(inputs, kept, answers, epochs, patience, log=print):
                 f"{p_win} / {win}")
     finally:
         _restore(flags)
-    return {"vloss_gap": max(vgaps), "vloss_median_gap":
-            float(np.median(vgaps)), "pred_gap": pgap,
-            "winner_misses": misses}
+    out = {"vloss_gap": max(vgaps), "vloss_median_gap":
+           float(np.median(vgaps)), "pred_gap": pgap,
+           "winner_misses": misses}
+    return {prefix + k: v for k, v in out.items()}

@@ -36,7 +36,9 @@ program takes its plain versions and nothing device-side is measured.
 `--control tf32` (the benchmark's own tests only) puts the reference with
 TF32 on in the program's place: no program runs, the answers of the folds
 a one-call window would keep come from the lower-precision reference, and
-the check must come out not correct.
+the check must come out not correct. A cell that compares its first
+epoch (check.EARLY) keeps the set-up call's answers of the folds the
+check draws, and the control answers those too.
 """
 
 from __future__ import annotations
@@ -189,6 +191,14 @@ class Program:
             lane_dispatch=self.dispatch)
 
 
+def keep_answers(res, call, folds):
+    """{(call, fold): (val losses per trial, winner index, predictions)}
+    of a sweep call's folds `folds`, copied for the check."""
+    return {(call, f): (res.val_loss_table[f].copy(),
+                        res.best_trial[f].index, res.predictions[f].clone())
+            for f in folds}
+
+
 def call_flops(cfg, inputs, res, folds):
     """Model FLOP of a sweep call's lane epochs (counts.lane_epoch_flops)."""
     h, w = cfg["grid"]
@@ -226,6 +236,10 @@ def run(args, log):
     if not cell.get("limits"):
         raise RunError(f"cell {args.workload!r} gives no limit: it would "
                        f"compare nothing")
+    try:
+        workload.predictor(cfg)
+    except ValueError as e:
+        raise RunError(f"configuration {cell['config']!r}: {e}") from e
     if args.cpu:
         device = "cpu"
     else:
@@ -264,8 +278,8 @@ def run(args, log):
     inputs = workload.make_inputs(cfg, args.seed, device)
     if device == "cuda":
         torch.cuda.synchronize()
-    log(f"bench: inputs {tuple(inputs.x.shape)}, {inputs.train.shape[0]} "
-        f"folds x {len(inputs.trials)} trials")
+    log(f"bench: inputs {tuple(inputs.x.shape)} {inputs.predictor}, "
+        f"{inputs.train.shape[0]} folds x {len(inputs.trials)} trials")
     phases.mark("inputs")
     F = inputs.train.shape[0]
     all_folds = list(range(F))
@@ -273,9 +287,17 @@ def run(args, log):
         return control_run(args, cell, cfg, inputs, device, log)
     prog = Program(cfg, traffic, inputs, device)
 
-    # set-up: one epoch of one call builds every program the window runs
+    # set-up: one epoch of one call builds every program the window runs;
+    # where the cell compares its first epoch, its answers are kept
     built = programs.STATS["build_s"]
-    prog.call(-1, epochs=1)
+    res = prog.call(check.SETUP_CALL, epochs=1)
+    early_kept, early_answers = {}, {}
+    if check.early(cell):
+        early_kept = {check.SETUP_CALL: check.preselect(
+            args.seed, check.SETUP_CALL, F)}
+        early_answers = keep_answers(res, check.SETUP_CALL,
+                                     early_kept[check.SETUP_CALL])
+    del res
     if device == "cuda":
         torch.cuda.synchronize()
     build_s = programs.STATS["build_s"] - built
@@ -291,10 +313,7 @@ def run(args, log):
         c = len(calls)
         res = prog.call(c)
         kept[c] = check.preselect(args.seed, c, F)
-        for f in kept[c]:
-            answers[(c, f)] = (res.val_loss_table[f].copy(),
-                               res.best_trial[f].index,
-                               res.predictions[f].clone())
+        answers.update(keep_answers(res, c, kept[c]))
         finite.append(torch.isfinite(res.predictions).flatten(1).all(1))
         calls.append({"steps": res.train_steps, "vloss": res.val_loss_table,
                       "flops": call_flops(cfg, inputs, res, all_folds),
@@ -376,6 +395,9 @@ def run(args, log):
     t_chk = time.perf_counter()
     readings = check.compare(inputs, kept, answers, cfg["epochs"],
                              cfg["patience"], log)
+    if early_answers:
+        readings.update(check.compare(inputs, early_kept, early_answers, 1,
+                                      cfg["patience"], log, check.EARLY))
     log(f"bench: check {time.perf_counter() - t_chk:.2f} s; readings "
         f"{readings}")
 
@@ -437,6 +459,12 @@ def control_run(args, cell, cfg, inputs, device, log):
     log(f"bench: control answers in {time.perf_counter() - t:.2f} s")
     readings = check.compare(inputs, kept, answers, cfg["epochs"],
                              cfg["patience"], log)
+    if check.early(cell):
+        kept = {check.SETUP_CALL: check.preselect(args.seed,
+                                                  check.SETUP_CALL, F)}
+        answers = check.control_answers(inputs, kept, 1, cfg["patience"])
+        readings.update(check.compare(inputs, kept, answers, 1,
+                                      cfg["patience"], log, check.EARLY))
     log(f"bench: control readings {readings}")
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     return result(cell, readings, 0, F * len(inputs.trials), {},

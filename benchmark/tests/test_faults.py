@@ -87,7 +87,26 @@ sweep.np = _Numpy()
 """
 
 
-@pytest.mark.parametrize("cell", ["tiny_serial", "tiny_vmap"])
+# the state left unchanged in some sweep calls only: the set-up call (the
+# harness's first) or every later one, the window's
+IN_CALLS = """
+from s2s_ismr_tpu_torch.train import engine, sweep
+_sweep, _update = sweep.run_unet_sweep, engine.Adam.update
+calls = [0]
+def run_unet_sweep(*a, **k):
+    calls[0] += 1
+    return _sweep(*a, **k)
+def update(self, g, state):
+    u, new = _update(self, g, state)
+    return (u * 0, state) if broken(calls[0]) else (u, new)
+sweep.run_unet_sweep, engine.Adam.update = run_unet_sweep, update
+"""
+SETUP_ONLY = IN_CALLS + "broken = lambda n: n == 1\n"
+WINDOW_ONLY = IN_CALLS + "broken = lambda n: n > 1\n"
+
+
+@pytest.mark.parametrize("cell", ["tiny_serial", "tiny_vmap",
+                                  "tiny_stacked_serial", "tiny_early_serial"])
 @pytest.mark.parametrize("fault", [UNCHANGED, HALF_BATCH, PREDICTION, VLOSS,
                                    ONE_LANE, WINNER],
                          ids=["state_unchanged", "half_batch",
@@ -97,3 +116,18 @@ def test_a_planted_fault_is_not_correct(tiny_root, cell, fault):
     rc, out, err = run_cell(tiny_args(tiny_root, cell), prelude=fault)
     assert rc == 0, err
     assert out["correct"] is False, out["checks"]
+
+
+@pytest.mark.parametrize("fault,early", [(SETUP_ONLY, True),
+                                         (WINDOW_ONLY, False)],
+                         ids=["setup_call_only", "window_calls_only"])
+def test_a_fault_in_some_calls_is_not_correct(tiny_root, fault, early):
+    """Only the numbers of the broken calls pass their limits."""
+    rc, out, err = run_cell(tiny_args(tiny_root, "tiny_early_serial"),
+                            prelude=fault)
+    assert rc == 0, err
+    assert out["correct"] is False, out["checks"]
+    failing = [k for k, c in out["checks"].items()
+               if c["value"] > c["limit"]]
+    assert failing and all(k.startswith("epoch1_") == early
+                           for k in failing), failing

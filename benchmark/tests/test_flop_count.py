@@ -65,8 +65,9 @@ def test_launches_per_lane_step():
     assert counts.chunks(1000, 64, 64) == [488, 488, 24]
 
 
+@pytest.mark.parametrize("config", ["tiny", "tiny_stacked"])
 @pytest.mark.parametrize("dispatch", ["serial", "vmap"])
-def test_launches_match_a_cpu_sweep_call(monkeypatch, dispatch):
+def test_launches_match_a_cpu_sweep_call(monkeypatch, dispatch, config):
     from s2s_ismr_tpu_torch.kernels import conv
     calls = [0]
 
@@ -79,7 +80,7 @@ def test_launches_match_a_cpu_sweep_call(monkeypatch, dispatch):
     for name in ("_conv_call", "_dx_call", "conv3x3_bias_act_lanes_plain",
                  "conv3x3_dx_lanes_plain"):
         monkeypatch.setattr(conv, name, counted(getattr(conv, name)))
-    cfg, inp = tiny_inputs()
+    cfg, inp = tiny_inputs(config)
     prog = brun.Program(cfg, {"lane_dispatch": dispatch}, inp, "cpu")
     for folds, epochs in ((None, 2), ([1], 1)):
         calls[0] = 0

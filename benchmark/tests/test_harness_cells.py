@@ -17,7 +17,8 @@ from .util import REPO, run_cell, tiny_args
 BENCH = os.path.join(REPO, "benchmark")
 
 
-@pytest.mark.parametrize("cell", ["tiny_serial", "tiny_vmap"])
+@pytest.mark.parametrize("cell", ["tiny_serial", "tiny_vmap",
+                                  "tiny_stacked_serial", "tiny_early_serial"])
 @pytest.mark.parametrize("trace", [0, 1])
 def test_tiny_run_prints_a_valid_last_line(tiny_root, cell, trace):
     rc, out, err = run_cell(tiny_args(tiny_root, cell, trace=trace))
@@ -36,6 +37,24 @@ def test_tiny_run_prints_a_valid_last_line(tiny_root, cell, trace):
     for name, c in out["checks"].items():
         assert c["value"] <= c["limit"], name
         assert f"{name} {c['value']!r} limit {c['limit']!r}" in err
+
+
+@pytest.mark.parametrize("cell,control", [("tiny_serial", None),
+                                          ("tiny_early_serial", None),
+                                          ("tiny_early_serial", "tf32")])
+def test_the_first_epoch_is_read_where_a_cell_names_it(tiny_root, cell,
+                                                       control):
+    """The set-up call's numbers are compared where the cell's limits name
+    one, from the control too, and read nowhere else."""
+    args = tiny_args(tiny_root, cell) + (["--control", control]
+                                         if control else [])
+    rc, out, err = run_cell(args)
+    assert rc == 0, err
+    with open(tiny_root / "cells" / f"{cell}.json") as fh:
+        limits = json.load(fh)["limits"]
+    assert set(out["checks"]) == set(limits)
+    early = "check: call -1 fold" in err
+    assert early == any(k.startswith("epoch1_") for k in limits)
 
 
 def test_cells_and_metrics_are_found_by_name(tiny_root):

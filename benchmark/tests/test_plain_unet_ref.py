@@ -17,8 +17,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 2 ** 31 + 12345
 
 
-def tiny_inputs():
-    with open(os.path.join(HERE, "tiny", "configs", "tiny.json")) as fh:
+def tiny_inputs(name="tiny"):
+    with open(os.path.join(HERE, "tiny", "configs", f"{name}.json")) as fh:
         cfg = json.load(fh)
     return cfg, workload.make_inputs(cfg, SEED, "cpu")
 

@@ -4,16 +4,25 @@ One general generator reads a configuration file (the deployment: grid,
 years, season, lead, folds, the trial bucket) and makes what a tuning
 sweep of it is handed:
 
-  * a synthetic hindcast: the ensemble-mean forecast images x (T, H, W, 1)
-    and the observed rainfall y (T, H, W), ocean pixels 0 (the pipeline's
-    fillna(0)); the recipe of the port's data/synthetic.py (a smoothed
-    truth field, a forecast correlated with it at `signal`, member noise),
-    rewritten in torch on the run's device;
+  * a synthetic hindcast: the forecast images x and the observed rainfall
+    y, ocean pixels 0 (the pipeline's fillna(0)); the recipe of the port's
+    data/synthetic.py (a smoothed truth field, a forecast correlated with
+    it at `signal`, member noise), rewritten in torch on the run's device.
+    The configuration's `data.predictor` (PREDICTORS) says how the members
+    reach the model, as the reference's convert_to_ndarray does:
+    'mean' (the default) hands the ensemble mean, x (T, H, W, 1) and y
+    (T, H, W); 'stacked' hands each member as a row of its own, in the
+    member-major order MT = (M, T) of the port's DataBundle.stacked(),
+    x (M T, H, W, 1), with y, the years, the weeks and so the fold masks
+    tiled M times;
   * the bootstrap fold masks over the years (RandomState(i) per fold, as
     the reference's preprocessing.py seeds them; the same for every seed,
     so every seed runs the same batch counts);
   * each fold's rolling ISO-week tercile labels, fit on the fold's train
-    years and one-hot (F, T, H, W, 3), unlabelled pixels all zero;
+    rows and one-hot (F, T, H, W, 3), unlabelled pixels all zero; stacked,
+    fit on the tiled rows (the reference's preprocess_stacked), which is
+    not the mean mode's labels tiled: a linear quantile over a record
+    repeated M times differs from one over the record;
   * each lane's initial weights (Keras glorot-uniform kernels, zero
     biases, BatchNorm at 1 / 0 / 0 / 1), drawn on the device in one call,
     and its batch orders (epochs, T), drawn on the host as the sweep's own
@@ -35,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 N_ISO_WEEKS = 53
+PREDICTORS = ("mean", "stacked")
 _MONTHS = {"Jan": 1, "Feb": 2, "Mar": 3, "Apr": 4, "May": 5, "Jun": 6,
            "Jul": 7, "Aug": 8, "Sep": 9, "Oct": 10, "Nov": 11, "Dec": 12}
 
@@ -45,6 +55,15 @@ def derive_seed(*parts) -> int:
     words = [int(p) % (1 << 64) for p in parts]
     state = np.random.SeedSequence(words).generate_state(2, np.uint32)
     return (int(state[0]) << 31) ^ int(state[1])
+
+
+def predictor(cfg):
+    """The configuration's predictor mode, 'mean' where it names none."""
+    mode = cfg["data"].get("predictor", "mean")
+    if mode not in PREDICTORS:
+        raise ValueError(f"data.predictor {mode!r} is not one of "
+                         f"{', '.join(PREDICTORS)}")
+    return mode
 
 
 def sample_dates(years, season, lead_days):
@@ -76,7 +95,8 @@ def _smooth(a, k):
 
 
 def hindcast(cfg, seed, device):
-    """(x (T, H, W, 1), y (T, H, W)) float32 on `device`."""
+    """(x (T, H, W, 1), y (T, H, W)) float32 on `device`; stacked, (x (M T,
+    H, W, 1), y (M T, H, W)), row m T + t member m at time t."""
     d = cfg["data"]
     ny, nx = cfg["grid"]
     _, weeks = sample_dates(cfg["years"], d["season"], d["lead_days"])
@@ -101,8 +121,10 @@ def hindcast(cfg, seed, device):
     fc = sig * truth + math.sqrt(1 - sig ** 2) * _smooth(normal(nt, ny, nx), 5)
     noise = _smooth(0.7 * normal(m, nt, ny, nx), 3)
     bias = 0.8 + 0.4 * uniform(1)
-    x = (bias * seasonal * topo * torch.exp(0.5 * (fc + noise))).mean(0)
-    return x[..., None].contiguous(), y
+    members = bias * seasonal * topo * torch.exp(0.5 * (fc + noise))
+    if predictor(cfg) == "stacked":
+        return members.reshape(m * nt, ny, nx, 1), y.repeat(m, 1, 1)
+    return members.mean(0)[..., None].contiguous(), y
 
 
 def fold_masks(sample_years, folds, frac_valid, frac_test):
@@ -170,24 +192,29 @@ def bucket_trials(cfg):
 
 @dataclass
 class Inputs:
-    x: torch.Tensor              # (T, H, W, 1)
+    x: torch.Tensor              # (T, H, W, 1); stacked T is M x the dates
     y_onehot: torch.Tensor       # (F, T, H, W, 3)
     train: np.ndarray            # (F, T) bool
     val: np.ndarray              # (F, T) bool
     trials: list
     seed: int
+    predictor: str               # one of PREDICTORS
 
 
 def make_inputs(cfg, seed, device) -> Inputs:
     d = cfg["data"]
+    mode = predictor(cfg)
     sample_years, weeks = sample_dates(cfg["years"], d["season"],
                                        d["lead_days"])
+    if mode == "stacked":
+        sample_years = np.tile(sample_years, d["members"])
+        weeks = np.tile(weeks, d["members"])
     x, y = hindcast(cfg, seed, device)
     train, val = fold_masks(sample_years, cfg["folds"], d["frac_valid"],
                             d["frac_test"])
     y_oh = torch.stack([tercile_onehot(y, weeks, train[f])
                         for f in range(cfg["folds"])])
-    return Inputs(x, y_oh, train, val, bucket_trials(cfg), seed)
+    return Inputs(x, y_oh, train, val, bucket_trials(cfg), seed, mode)
 
 
 def lane_init(spec, seed, call, fold, trial, device):
