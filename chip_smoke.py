@@ -238,6 +238,22 @@ the card line, then the result line {"ok": true, ...}.
 
 runs phases 1-2 and phase 16 alone.
 
+    python3 chip_smoke.py --epoch-chunks
+
+runs phases 1-2 and phase 17 alone (it is not part of the full run,
+which it would take past its time limit): the stacked predictor's 64x64
+epoch (24 members x 437 dates as rows, n_blocks 5, filters 3, batch 16)
+in the engine's chunk graphs: (a) at 458 batches under each chunk of
+CHUNK_SIZES, the capture seconds, each segment graph's launch (host ms
+on an idle device) and device ms, the launches queued behind a chunk
+graph and the launches an epoch takes; (b) the whole epoch
+against itself with cuDNN free, printed, and with cuDNN deterministic
+the committed chunk (engine.EPOCH_CHUNK) against the whole-epoch capture
+at 458 and 461 batches, bit for bit; (c) in every run, the conv and
+BatchNorm kernel launches against the shapes' count; (d) a 32x32 lane
+with dropout in chunks of 5 against the uncaptured seam, bit for bit.
+It prints the card line and {"epoch_chunks": ...} last.
+
     python3 chip_smoke.py --shapes-json PATH
 
 runs phases 1-2 and writes the shapes phases 3, 10, 11 and 12 time,
@@ -3558,6 +3574,245 @@ def batchnorm_path(torch, card):
     return sums, floor
 
 
+# phase 17: the stacked predictor's 64x64 epoch (24 members x 437 dates as
+# rows, tune_IITM_full's widest trial) in the engine's chunk graphs
+CHUNK_MEMBERS, CHUNK_DATES, CHUNK_SIDE = 24, 437, 64
+CHUNK_BATCHES = (458, 461)      # real batches of 16 a fold (benchmark)
+CHUNK_VAL_ROWS = 2112           # 24 x 88 val dates, the most of a fold
+CHUNK_SIZES = (20, 24, 28, 32, 36, 40)   # (a)'s chunks
+CHUNK_DROPOUT = (349, 32, 5)    # (c): rows, side, the chunk patched
+CHUNK_DEVICE = "cuda"           # "cpu" rehearses the phase (no graphs)
+
+
+def chunk_data(torch, rows, side, n_batches, val_rows, seed=17):
+    """x (rows, side, side, 1), one-hot targets and masks: n_batches real
+    batches of 16 (the last ragged), the last val_rows rows val."""
+    g = torch.Generator(device=CHUNK_DEVICE).manual_seed(seed)
+    x = torch.randn((rows, side, side, 1), generator=g, device=CHUNK_DEVICE)
+    cls = torch.randint(0, 3, (rows, side, side), generator=g,
+                        device=CHUNK_DEVICE)
+    y = torch.nn.functional.one_hot(cls, 3).to(torch.float32)
+    train = torch.zeros(rows, dtype=torch.bool)
+    train[:16 * n_batches - 5] = True
+    val = torch.zeros(rows, dtype=torch.bool)
+    val[rows - val_rows:] = True
+    return x, y, train, val
+
+
+def chunk_lane(torch, data, chunk, epochs=2, rate=0.0, blocks=(5, 3),
+               uncaptured=False, seed=5):
+    """train_fold of one lane with engine.EPOCH_CHUNK = chunk: (best, best
+    vloss, hist, Adam count, generator states after, the program, conv
+    and BatchNorm launches, wall s)."""
+    from s2s_ismr_tpu_torch import programs
+    from s2s_ismr_tpu_torch.kernels import batchnorm, conv
+    from s2s_ismr_tpu_torch.models import UNet, UNetConfig
+    from s2s_ismr_tpu_torch.train import engine
+    x, y, train, val = data
+    engine.EPOCH_CHUNK = chunk
+    cfg = UNetConfig(n_blocks=blocks[0], filters=blocks[1], ct_kernel=(3, 3),
+                     dropout_rate=rate)
+    g = torch.Generator().manual_seed(seed)
+    d = torch.Generator(device=CHUNK_DEVICE).manual_seed(seed + 1)
+    model = UNet(cfg, 1, generator=g, device=CHUNK_DEVICE)
+    settings = engine.TrainSettings(epochs=epochs, batch_size=16,
+                                    patience=2, val_rows=int(val.sum()),
+                                    early_exit=True)
+    if CHUNK_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    n0, b0, t0 = conv.LAUNCHES, batchnorm.LAUNCHES, time.perf_counter()
+    best, v, h = engine.train_fold(model, x, y, train, val, 1e-3, g,
+                                   settings, dropout_generator=d,
+                                   _uncaptured=uncaptured)
+    if CHUNK_DEVICE == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prog = programs.last()
+    return (best, v, h, prog.lane.opt_state[0].clone(), gen_states([g, d]),
+            prog, conv.LAUNCHES - n0, batchnorm.LAUNCHES - b0, wall)
+
+
+def chunk_want(torch, data, epochs, n_blocks=5):
+    """(conv, BatchNorm) kernel launches the shapes give for `epochs`
+    epochs of one lane: per step step_launches and bn_step_launches, per
+    epoch a val forward in row chunks."""
+    from s2s_ismr_tpu_torch.train.engine import row_chunk, train_batches
+    x, _, train, val = data
+    n = train_batches(int(train.sum()), 16)
+    chunks = -(-int(val.sum()) // row_chunk(x))
+    return (epochs * (n * sum(step_launches(n_blocks))
+                      + chunks * (4 * n_blocks + 2)),
+            epochs * n * bn_step_launches("unet", n_blocks))
+
+
+def segment_times(torch, prog, reps=5):
+    """Per segment of a captured program: (host ms of its launch on an idle
+    device, device ms to its end), medians over `reps`; the step counter
+    reset before each so that no chunk reads past the batches."""
+    out = []
+    for graph, *_ in prog.graphs:
+        host, dev = [], []
+        for _ in range(reps):
+            if hasattr(prog, "offset"):
+                prog.offset.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            graph.replay()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            host.append(1e3 * (t1 - t0))
+            dev.append(1e3 * (t2 - t0))
+        out.append((sorted(host)[reps // 2], sorted(dev)[reps // 2]))
+    return out
+
+
+def relaunch_times(torch, prog):
+    """Host ms of launches queued behind a chunk graph's: the chunk graph
+    launched again at once, and the single-step graph after a chunk."""
+    chunk, step = prog.graphs[1][0], prog.graphs[2][0]
+    out = []
+    for second in (chunk, step):
+        prog.offset.zero_()
+        torch.cuda.synchronize()
+        chunk.replay()
+        t0 = time.perf_counter()
+        second.replay()
+        out.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    return out
+
+
+def state_diff(torch, a, b):
+    """{name: largest |a - b|} of two state_dicts where they differ."""
+    return {k: float((a[k].double() - b[k].double()).abs().max())
+            for k in a if not torch.equal(a[k], b[k])}
+
+
+def epoch_chunks_path(torch, card):
+    """Phase 17: (a) the stacked 64x64 epoch at 458 batches under each
+    chunk of CHUNK_SIZES: capture seconds and each segment's launch (host
+    ms on an idle device, device ms), launches queued behind a chunk, the
+    epoch's launches; (b) with cuDNN free (as the sweep trains)
+    the whole epoch against itself, printed; with cuDNN deterministic the
+    committed chunk against the whole-epoch capture at 458 and 461
+    batches, bit for bit; (c) launches of every run of (a) and (b) against
+    the shapes' count; (d) a 32x32 lane with dropout, chunked graphs
+    against the uncaptured seam, bit for bit (generator states included).
+    Returns the numbers."""
+    from s2s_ismr_tpu_torch import profiling, programs
+    from s2s_ismr_tpu_torch.train import engine
+    t_phase = time.perf_counter()
+    committed = engine.EPOCH_CHUNK
+    rows = CHUNK_MEMBERS * CHUNK_DATES
+    out = {"chunk": committed, "sizes": {}}
+
+    def checked(tag, run, data, epochs):
+        want = chunk_want(torch, data, epochs)
+        check(run[6] == want[0], f"{tag}: {run[6]} conv launches, the "
+              f"shapes give {want[0]}")
+        check(run[7] == want[1], f"{tag}: {run[7]} BatchNorm launches, the "
+              f"shapes give {want[1]}")
+
+    data = chunk_data(torch, rows, CHUNK_SIDE, CHUNK_BATCHES[0],
+                      CHUNK_VAL_ROWS)
+    print(f"  (a) x {tuple(data[0].shape)}, {CHUNK_BATCHES[0]} batches of "
+          f"16, {CHUNK_VAL_ROWS} val rows, n_blocks 5 filters 3 (on {card})")
+    for k in CHUNK_SIZES:
+        programs._program_memo.clear()
+        s0 = dict(programs.STATS)
+        with profiling.call("phase17") as rec:
+            run = chunk_lane(torch, data, k)
+        checked(f"chunk {k}", run, data, 2)
+        sp = rec.as_dict()["spans"]
+        prog = run[5]
+        segs = segment_times(torch, prog) if prog.graphs else []
+        again = relaunch_times(torch, prog) if prog.graphs else []
+        row = {"capture_s": programs.STATS["capture_s"] - s0["capture_s"],
+               "build_s": programs.STATS["build_s"] - s0["build_s"],
+               "captured_steps": (programs.STATS["captured_steps"]
+                                  - s0["captured_steps"]),
+               "launches_per_epoch": len(prog.schedule()),
+               "train_replay_ms": 1e3 * sp["programs.train_replay"]["total_s"]
+               / sp["programs.train_replay"]["count"],
+               "segments_host_ms": [s[0] for s in segs],
+               "segments_device_ms": [s[1] for s in segs],
+               "behind_chunk_host_ms": again, "wall_s": run[8]}
+        out["sizes"][k] = row
+        print(f"  chunk {k}: capture {row['capture_s']:.2f} s (build "
+              f"{row['build_s']:.2f}), {row['captured_steps']} steps "
+              f"captured; {row['launches_per_epoch']} launches an epoch, "
+              f"train_replay "
+              f"{row['train_replay_ms']:.2f} ms; segments host ms "
+              f"{[round(v, 3) for v in row['segments_host_ms']]}, device ms "
+              f"{[round(v, 3) for v in row['segments_device_ms']]}; behind "
+              f"a chunk, the chunk again / a step {[round(v, 3) for v in again]}"
+              f" host ms; 2 epochs in {run[8]:.2f} s")
+        del run, prog
+
+    # cuDNN free, as the sweep trains: does the whole epoch repeat itself?
+    programs._program_memo.clear()
+    d = chunk_data(torch, rows, CHUNK_SIDE, CHUNK_BATCHES[0], CHUNK_VAL_ROWS)
+    free = [chunk_lane(torch, d, 10 ** 6) for _ in range(2)]
+    diff = state_diff(torch, free[0][0], free[1][0])
+    out["free_repeat_differs"] = len(diff)
+    out["free_repeat_max_abs"] = max(diff.values(), default=0.0)
+    print(f"  (b) cuDNN free: the whole epoch against itself, "
+          f"{len(diff)} state tensors differ (largest |diff| "
+          f"{out['free_repeat_max_abs']:.3e}), val losses "
+          f"{'equal' if torch.equal(free[0][2], free[1][2]) else 'differ'}")
+    del free, d
+    for n in CHUNK_BATCHES:
+        programs._program_memo.clear()
+        d = chunk_data(torch, rows, CHUNK_SIDE, n, CHUNK_VAL_ROWS)
+        s0 = programs.STATS["capture_s"]
+        with engine.deterministic_cudnn():
+            whole = chunk_lane(torch, d, 10 ** 6)
+        whole_s = programs.STATS["capture_s"] - s0
+        checked(f"whole {n}", whole, d, 2)
+        programs._program_memo.clear()
+        with engine.deterministic_cudnn():
+            chunked = chunk_lane(torch, d, committed)
+        checked(f"chunked {n}", chunked, d, 2)
+        check(isinstance(chunked[5], engine._ChunkedFoldProgram)
+              and not isinstance(whole[5], engine._ChunkedFoldProgram),
+              "the programs are not the chunked and the whole one")
+        diff = same_run(torch, chunked[:5], whole[:5])
+        check(not diff, f"(b) {n} batches: chunk {committed} against the "
+              f"whole epoch differs in {diff}: "
+              f"{state_diff(torch, chunked[0], whole[0])}")
+        out[f"whole_{n}_capture_s"] = whole_s
+        out[f"whole_{n}_wall_s"] = whole[8]
+        out[f"chunked_{n}_wall_s"] = chunked[8]
+        print(f"  (b) {n} batches, cuDNN deterministic: chunk {committed} "
+              f"bit-equal to the whole epoch (capture {whole_s:.2f} s; 2 "
+              f"epochs {whole[8]:.2f} s "
+              f"whole, {chunked[8]:.2f} s chunked); launches exact")
+        del whole, chunked, d
+    del data
+    programs._program_memo.clear()
+
+    n_rows, side, k = CHUNK_DROPOUT
+    d = chunk_data(torch, n_rows, side, 17, 64, seed=3)
+    with engine.deterministic_cudnn():
+        a = chunk_lane(torch, d, k, epochs=3, rate=0.2, blocks=(3, 2))
+        b = chunk_lane(torch, d, k, epochs=3, rate=0.2, blocks=(3, 2),
+                       uncaptured=True)
+    diff = same_run(torch, a[:5], b[:5])
+    check(not diff, f"(d) dropout lane, chunk {k}: graphs against the seam "
+          f"differ in {diff}")
+    check(a[6] == b[6] == chunk_want(torch, d, 3, 3)[0],
+          f"(d) conv launches {a[6]} / {b[6]}")
+    print(f"  (d) {side}x{side}, dropout 0.2, 17 batches in chunks of {k}: "
+          f"graphs bit-equal to the uncaptured seam, generator states "
+          f"included")
+    programs._program_memo.clear()
+    engine.EPOCH_CHUNK = committed
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 17 wall {out['wall_s']:.2f} s")
+    return out
+
+
 def elr_cuda_vs_cpu(torch):
     """The ELR branch of the full tune_ECMWF_com and tune_2MME configs
     (10 folds) on cuda and on the CPU in this process; returns the cuda
@@ -3666,6 +3921,9 @@ def main(argv=None):
                          "expectations file to PATH")
     ap.add_argument("--batchnorm", action="store_true",
                     help="only run phase 16 (the BatchNorm kernels)")
+    ap.add_argument("--epoch-chunks", action="store_true",
+                    help="only run phase 17 (the stacked 64x64 epoch in "
+                         "the engine's chunk graphs)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3719,6 +3977,13 @@ def main(argv=None):
         if args.batchnorm:
             print("[16/16] only: the train-mode BatchNorm kernels")
             batchnorm_path(torch, card)
+            return 0
+        if args.epoch_chunks:
+            print("[17] only: the stacked predictor's 64x64 epoch in the "
+                  "engine's chunk graphs")
+            nums = epoch_chunks_path(torch, card)
+            print(card)
+            print(json.dumps({"epoch_chunks": nums}))
             return 0
 
         print("[3/16] kernel vs plain (TF32 off), batch 16")

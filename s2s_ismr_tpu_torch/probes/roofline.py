@@ -225,16 +225,17 @@ def epoch_census(wl, log=print):
     out = {"n_steps": n, "build_s": build_s,
            "val_chunks": -(-wl.val_rows // engine.row_chunk(wl.x))}
     if cuda:
+        captured = sum(prog.graphs[i][1] for i in prog.schedule())
         _, wall, events = bench.device_profile(prog.run)
         n_conv = sum(conv.is_kernel_event(e.name) for e in events)
         out["replay"] = {"device_ops": len(events), "conv_launches": n_conv,
-                         "captured_launches": prog.launches[0],
+                         "captured_launches": captured,
                          "wall_ms": wall * 1e3,
                          "busy_ms": sum(e.time_range.elapsed_us()
                                         for e in events) / 1e3}
         log(f"roofline: one replay of lane 0's epoch ({n} steps): "
             f"{len(events)} device ops, {n_conv} conv kernel launches "
-            f"(the program captured {prog.launches[0]}), "
+            f"(the program captured {captured}), "
             f"{out['replay']['busy_ms']:.4f} device ms in "
             f"{out['replay']['wall_ms']:.3f} ms")
     g = wl.generator(0)

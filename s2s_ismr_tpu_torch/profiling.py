@@ -12,7 +12,8 @@ replay. Each `run_unet_sweep` call opens a call record (`call`), numbered
 from 0 in the process; every span opened inside it, in its thread or in a
 mesh's device threads that carry it (`carried`), adds its duration, its
 self time (the duration less what its child spans in the same thread
-cover) and one to its count under its name. The last `CALLS_KEPT` closed
+cover) and one to its count under its name; `count` adds to a counter of
+the open record. The last `CALLS_KEPT` closed
 records are `calls()`. While a torch profiler records, each span is also a
 profiler range, so it shows in the profiler's trace on its clock, as an
 op: a function-scope RecordFunction, as an aten op's. A user-scope one
@@ -148,6 +149,14 @@ def call(name):
 def current():
     """This thread's open call record, or None."""
     return getattr(_local, "rec", None)
+
+
+def count(name, value):
+    """Adds `value` to the counter `name` of this thread's open call
+    record, if one is open."""
+    rec = current()
+    if rec is not None:
+        rec.count(name, value)
 
 
 def calls():

@@ -17,23 +17,43 @@ shapes of its buffers (`_avals_key`), its statics, the device
 (`device_key`) and the cuDNN / TF32 flags in force at capture
 (`flags_key`: a replay keeps the algorithms chosen then).
 
+A program is one or more segments (`Program.segments`), each captured
+into a graph of its own, and a run launches them in the order its
+`schedule` gives; most programs are one segment, the whole body, launched
+once a run. A training epoch longer than the engine's chunk is a prologue,
+a chunk of steps launched again and again, a single step and an epilogue
+(`engine._ChunkedFoldProgram`), so that what is captured stays bounded
+whatever the epoch's length. On the CPU each segment is called in the same
+order.
+
 Capture (`Program.build`): the body runs once on a side stream, cut to
 one minibatch step of weight 0 (the warm-up: it loads the kernel library,
 sets the conv kernel's shared-memory attributes and allocates the cuBLAS /
 cuDNN workspaces outside the graph; every step has the same kernels and
-shapes), then in full under `torch.cuda.CUDAGraph` capture on that stream,
-in `thread_local` mode (a mesh's other host threads keep allocating while
-one thread captures), one capture at a time in the process. Every graph of
-a device shares one memory pool: a program keeps all it must keep in
-buffers allocated outside the capture, so nothing in the pool outlives a
-replay, and programs never run at once on one device. The conv kernel's
-launches during the warm-up count in `conv.WARMUP_LAUNCHES`, those during
-capture nowhere; each replay adds the launches the program captured to
+shapes), then each segment in full under `torch.cuda.CUDAGraph` capture
+on that stream, in `thread_local` mode (a mesh's other host threads keep
+allocating while one thread captures), one capture at a time in the
+process. Every graph of a device shares one memory pool: a program keeps
+all it must keep, also what one segment hands the next, in buffers
+allocated outside the capture, so nothing in the pool outlives a launch,
+and programs never run at once on one device. The conv kernel's launches
+during the warm-up count in `conv.WARMUP_LAUNCHES`, those during capture
+nowhere; each launch of a graph adds the launches it captured to
 `conv.LAUNCHES`. The BatchNorm kernels' count likewise in
 `batchnorm.WARMUP_LAUNCHES` and `batchnorm.LAUNCHES`. A program's device
-generators (dropout) are registered with its graph: a lane's generator
-state is copied into them before its replays and back after, so replay j
-draws what eager epoch j draws.
+generators (dropout) are registered with each of its graphs: a lane's
+generator state is copied into them before its runs and back after, so
+run j draws what eager epoch j draws.
+
+Counts: a training program's build adds the minibatch steps its segments
+hold (a batched step of L lanes once) to `STATS['captured_steps']` and to
+the open call record's counter `captured_steps` (`profiling.count`); on
+the CPU, where nothing is captured, the steps its segments run uncaptured.
+A run, all the launches of its schedule, is the span
+`programs.{kind}_replay`; inside a training program's run each segment's
+launch (the segment's call on the CPU) is the span `programs.graph_launch`.
+A launch queued behind a graph that still runs waits for it, so in a
+chunked epoch that span holds the device time of the graph before it.
 
 There is no fallback: a capture or replay that fails raises. A program
 built with capture=False runs its body uncaptured on the card too; only
@@ -48,6 +68,7 @@ stays unported too: the nvcc library is cached by `kernels/_build.py`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -135,13 +156,14 @@ class _ProgramMemo:
 _program_memo = _ProgramMemo()
 
 # What the programs did in this process (or since reset_stats): memo hits
-# and misses, captures, the seconds of the captures and of the whole builds
-# (warm-up, checks and capture), replays of training epochs and of eval
-# forwards, and runs uncaptured on a CUDA device (only the engine's test
-# seam makes those).
+# and misses, captures (programs captured, whatever their segments), the
+# seconds of the captures and of the whole builds (warm-up, checks and
+# capture), replays of training epochs and of eval forwards, runs
+# uncaptured on a CUDA device (only the engine's test seam makes those),
+# and the minibatch steps the training programs built hold.
 STATS = {"hits": 0, "misses": 0, "captures": 0, "capture_s": 0.0,
          "build_s": 0.0, "train_replays": 0, "predict_replays": 0,
-         "uncaptured_cuda_runs": 0}
+         "uncaptured_cuda_runs": 0, "captured_steps": 0}
 _STATS_LOCK = threading.Lock()
 
 
@@ -252,35 +274,49 @@ def last():
 class Program:
     """Static buffers and a body over them. Subclasses allocate their
     buffers, set `generators` (device generators the body draws from) and
-    call build(); callers hold `lock` while they load inputs, run and read
-    out, since the buffers are the program's one set of state. `kind`
-    names what a run is ('train': an epoch, 'predict': an eval forward)."""
+    `steps` (the minibatch steps a run holds) and call build(); callers
+    hold `lock` while they load inputs, run and read out, since the
+    buffers are the program's one set of state. `kind` names what a run
+    is ('train': an epoch, 'predict': an eval forward)."""
 
     kind = "train"
+    steps = 0
 
     def __init__(self, device, capture=True):
         self.device = torch.device(device)
         self.capture = capture and self.device.type == "cuda"
         self.lock = threading.Lock()
-        self.graph = None
+        self.graphs = []             # per segment: (graph, conv launches,
+        # lane-mode launches, BatchNorm kernel launches)
         self.generators = []
-        self.launches = (0, 0)       # conv launches, lane-mode launches
-        self.bn_launches = 0         # BatchNorm kernel launches
 
     def body(self, steps=None):
         """One run over the buffers; `steps` cuts a training epoch to its
         first `steps` minibatch steps (the warm-up's one)."""
         raise NotImplementedError
 
+    def segments(self):
+        """The parts of a run, each captured into a graph of its own:
+        [(fn, minibatch steps it holds)]. By default the whole body."""
+        return [(self.body, self.steps)]
+
+    def schedule(self):
+        """The segments a run launches, by index, in order."""
+        return (0,)
+
     def build(self):
         """On a CUDA device (unless built uncaptured): warm up, then capture
-        the body. The program's state after the warm-up must equal its
+        the segments. The program's state after the warm-up must equal its
         state before it (the body's gates make the warm-up a no-op on
         zero-weight inputs); `warm_state` lists what to check. In the span
         `programs.build`."""
         with profiling.span("programs.build"):
             if self.capture:
                 self._capture()
+            if self.kind == "train":
+                steps = sum(n for _, n in self.segments())
+                _add("captured_steps", steps)
+                profiling.count("captured_steps", steps)
         return self
 
     def _capture(self):
@@ -301,59 +337,75 @@ class Program:
                 raise RuntimeError("program warm-up changed the program's "
                                    "state: a gate let a zero-weight batch "
                                    "through")
-            graph = torch.cuda.CUDAGraph()
-            for g in self.generators:
-                if g is not None:
-                    graph.register_generator_state(g)
             t1 = time.perf_counter()
-            with torch.cuda.stream(stream), conv.tally(stream) as cap, \
-                    batchnorm.tally(stream) as bn_cap:
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    self.body()
-                except BaseException:
-                    try:
-                        graph.capture_end()
-                    except Exception:
-                        pass
-                    raise
-                graph.capture_end()
+            graphs = [self._capture_one(fn, stream, pool)
+                      for fn, _ in self.segments()]
             torch.cuda.current_stream(dev).wait_stream(stream)
             t2 = time.perf_counter()
-        self.graph = graph
-        self.launches = (len(cap), sum(n > 1 for n in cap))
-        self.bn_launches = len(bn_cap)
+        self.graphs = graphs
         _add("captures")
         _add("capture_s", t2 - t1)
         _add("build_s", t2 - t0)
+
+    def _capture_one(self, fn, stream, pool):
+        """fn captured into a graph of the shared pool on `stream`: (graph,
+        its conv launches, lane-mode launches, BatchNorm launches)."""
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            if g is not None:
+                graph.register_generator_state(g)
+        with torch.cuda.stream(stream), conv.tally(stream) as cap, \
+                batchnorm.tally(stream) as bn_cap:
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except Exception:
+                    pass
+                raise
+            graph.capture_end()
+        return graph, len(cap), sum(n > 1 for n in cap), len(bn_cap)
 
     def warm_state(self):
         """Tensors the warm-up must leave as they were."""
         return []
 
+    def _launch(self):
+        """A segment's launch: the span programs.graph_launch in a
+        training program."""
+        return (profiling.span("programs.graph_launch")
+                if self.kind == "train" else contextlib.nullcontext())
+
     def run(self):
-        """One run of the body: a replay of its graph, or the body itself
-        (on the CPU, or uncaptured on the card), in the span
-        `programs.{kind}_replay`."""
+        """One run: the segments of its schedule, each a launch of its
+        graph, or the segment itself (on the CPU, or uncaptured on the
+        card), in the span `programs.{kind}_replay`."""
         _local.last = self
         with profiling.span(f"programs.{self.kind}_replay"):
-            if self.graph is None:
+            if not self.graphs:
                 if self.device.type == "cuda":
                     _add("uncaptured_cuda_runs")
-                self.body()
+                parts = self.segments()
+                for i in self.schedule():
+                    with self._launch():
+                        parts[i][0]()
                 return
             with torch.cuda.device(self.device):
-                self.graph.replay()
-            conv.replayed(*self.launches)
-            batchnorm.replayed(self.bn_launches)
+                for i in self.schedule():
+                    graph, n, lanes, bn = self.graphs[i]
+                    with self._launch():
+                        graph.replay()
+                    conv.replayed(n, lanes)
+                    batchnorm.replayed(bn)
             _add(f"{self.kind}_replays")
 
     def bind(self, generators):
         """Before a lane's runs: a captured program copies each lane
         generator's state into its own registered generator; an uncaptured
         one draws from the lane's generators themselves."""
-        if self.graph is None:
+        if not self.graphs:
             self.generators = list(generators)
             return
         for own, g in zip(self.generators, generators):
@@ -363,7 +415,7 @@ class Program:
     def unbind(self, generators):
         """After a lane's runs: the lane generators take the states their
         draws left in the program's generators."""
-        if self.graph is None:
+        if not self.graphs:
             return
         for own, g in zip(self.generators, generators):
             if own is not None and g is not None:

@@ -19,12 +19,17 @@ A lane's epoch is one program (`programs.Program`), JAX's jitted
 `epoch_step` (its minibatch scan and the val / best-epoch update): its
 body is written once over the program's static buffers. On a CUDA device
 the body is captured once into a CUDA graph and each epoch is a replay; on
-the CPU the body is called directly. The programs live in the process's
-memo (`programs`), keyed by the model's structure, the shapes and the
-statics, so every lane, fold and config of the same shapes reuses one:
-data, masks, learning rate, batch orders and initial weights are copied
-into the program's buffers before a lane runs, and its best state copied
-out after. The epoch loop around the program stays on the host, with its
+the CPU the body is called directly. An epoch of more than EPOCH_CHUNK
+real steps (the stacked predictor's) is captured in four segments instead
+(`_ChunkedFoldProgram`: a prologue, a chunk of EPOCH_CHUNK steps launched
+again and again, a single step for the rest, an epilogue), which every
+fold of those shapes shares whatever its count of steps: the capture
+stays bounded and the arithmetic is the whole epoch's, in its order.
+The programs live in the process's memo (`programs`), keyed by the
+model's structure, the shapes and the statics, so every lane, fold and
+config of the same shapes reuses one: data, masks, learning rate, batch
+orders and initial weights are copied into the program's buffers before
+a lane runs, and its best state copied out after. The epoch loop around the program stays on the host, with its
 one read per epoch (`stopped`, under `early_exit`), as JAX's early-exit
 `while_loop` reads its condition. Each epoch runs only the batches that
 hold a training sample: the train-first partition puts every all-padding
@@ -78,6 +83,18 @@ from .losses import categorical_crossentropy, masked_mse
 
 _LOSSES = {"categorical_crossentropy": categorical_crossentropy,
            "mse": masked_mse}
+
+# The most minibatch steps one lane's epoch captures into one graph. A
+# longer epoch (the stacked predictor's 458-461 batches) runs as the
+# segments of _ChunkedFoldProgram, whose chunk holds this many steps. The
+# chunk trades capture time, which grows with it, against launches an
+# epoch (n // chunk + n % chunk + 2). At 64x64 (n_blocks 5) on the H100,
+# 458 steps: a chunk of 24-32 steps captures in 0.8-1.0 s, of 40 in
+# 1.3-1.6 s, of 120 in 3.8 s, of 240 in 8.7 s, and 32 gives 26 launches.
+# The epoch's launches take about its device time (1.40-1.46 s) at every
+# chunk of 20-240 steps, since each launch waits for the graph before it:
+# the chunk does not shorten them (chip_smoke.py --epoch-chunks).
+EPOCH_CHUNK = 32
 
 
 @dataclass(frozen=True)
@@ -254,11 +271,14 @@ def _settings_key(settings):
 def fold_key(model, x, y, n_real, val_rows, settings):
     """The memo key of train_fold's program: the model's structure, the
     images' and targets' shapes (T, H, W, C, K), the batch size, the real
-    steps per epoch, the val rows, the loss and Adam's constants, the
-    device and the backend flags. The learning rate, the data and the
-    initial weights are inputs, not parts of the key."""
+    steps per epoch (past EPOCH_CHUNK the chunk instead, ("chunk",
+    EPOCH_CHUNK): every such epoch shares one program), the val rows, the
+    loss and Adam's constants, the device and the backend flags. The
+    learning rate, the data and the initial weights are inputs, not parts
+    of the key."""
+    steps = n_real if n_real <= EPOCH_CHUNK else ("chunk", EPOCH_CHUNK)
     return ("train_fold", programs.module_key(model),
-            programs._avals_key((x, y)), n_real, val_rows,
+            programs._avals_key((x, y)), steps, val_rows,
             _settings_key(settings), programs.device_key(x.device),
             programs.flags_key())
 
@@ -305,6 +325,7 @@ class _FoldProgram(programs.Program):
         dev, T = self.device, x.shape[0]
         bs = settings.batch_size
         self.T, self.bs, self.n_real = T, bs, n_real
+        self.steps = n_real
         self.pad = -(-T // bs) * bs - T
         self.patience = settings.patience
         self.loss_impl = _LOSSES[settings.loss]
@@ -340,15 +361,23 @@ class _FoldProgram(programs.Program):
         return [self.lane.flat, self.lane.stats, *self.lane.opt_state]
 
     def body(self, steps=None):
-        lane = self.lane
         batches = _epoch_batches(self.perm, self.train_mask, self.pad,
                                  self.bs)
         for j in range(self.n_real if steps is None
                        else min(steps, self.n_real)):
-            bidx = batches[j]
-            train_step(lane, self.x_pad[bidx], self.y_pad[bidx],
-                       self.w_pad[bidx], self.lr, self.loss_impl,
-                       self.generators[0])
+            self._step(batches[j])
+        self._epilogue()
+
+    def _step(self, bidx):
+        """The minibatch step on the batch rows bidx (bs,)."""
+        train_step(self.lane, self.x_pad[bidx], self.y_pad[bidx],
+                   self.w_pad[bidx], self.lr, self.loss_impl,
+                   self.generators[0])
+
+    def _epilogue(self):
+        """The val forward and loss, and the best-epoch / patience
+        update."""
+        lane = self.lane
         with torch.no_grad():
             out = eval_rows(lambda v: self.model(v, train=False), self.x_val)
             vloss = self.loss_impl(out, self.y_val, self.w_val)
@@ -403,6 +432,56 @@ class _FoldProgram(programs.Program):
                 for k, v in self.model.state_dict().items()}
 
 
+class _ChunkedFoldProgram(_FoldProgram):
+    """_FoldProgram's epoch for any count of real steps, in four segments
+    that every lane of these shapes shares, whatever its fold:
+      0 prologue  the epoch's batches from perm into the buffer `batches`,
+                  the step counter `offset` set to 0;
+      1 chunk     EPOCH_CHUNK steps on the batches from `offset` on, which
+                  it then advances by EPOCH_CHUNK;
+      2 step      one step, the same with 1;
+      3 epilogue  _FoldProgram's val forward and best-epoch update.
+    A run of n real steps (`n_real`, set for each lane after its load)
+    launches the prologue, the chunk n // EPOCH_CHUNK times, the step n %
+    EPOCH_CHUNK times and the epilogue: the whole epoch's arithmetic in its
+    order, EPOCH_CHUNK + 1 steps captured and no host read between."""
+
+    def __init__(self, model, x, y, val_rows, n_real, settings, capture):
+        dev, bs = x.device, settings.batch_size
+        self.chunk = EPOCH_CHUNK
+        self.batches = torch.zeros((-(-x.shape[0] // bs), bs),
+                                   dtype=torch.int64, device=dev)
+        self.offset = torch.zeros((), dtype=torch.int64, device=dev)
+        self.ahead = torch.arange(self.chunk, device=dev)
+        super().__init__(model, x, y, val_rows, n_real, settings, capture)
+
+    def segments(self):
+        return [(self._prologue, 0),
+                (lambda: self._steps(self.chunk), self.chunk),
+                (lambda: self._steps(1), 1), (self._epilogue, 0)]
+
+    def schedule(self, steps=None):
+        n = self.n_real if steps is None else min(steps, self.n_real)
+        return ((0,) + (1,) * (n // self.chunk) + (2,) * (n % self.chunk)
+                + (3,))
+
+    def body(self, steps=None):
+        parts = self.segments()
+        for i in self.schedule(steps):
+            parts[i][0]()
+
+    def _prologue(self):
+        self.batches.copy_(_epoch_batches(self.perm, self.train_mask,
+                                          self.pad, self.bs))
+        self.offset.zero_()
+
+    def _steps(self, k):
+        rows = self.batches.index_select(0, self.offset + self.ahead[:k])
+        for j in range(k):
+            self._step(rows[j])
+        self.offset.add_(k)
+
+
 def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
                generator: torch.Generator | None, settings: TrainSettings,
                init_variables: dict | None = None, epoch_perms=None,
@@ -426,9 +505,12 @@ def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
                program of its own (a test seam: the graph's yardstick)
     Returns the best state_dict (copies), the best val loss (0-d tensor)
     and the per-epoch val losses (epochs,), NaN past an early exit.
+    An epoch of at most EPOCH_CHUNK real steps is one graph
+    (_FoldProgram); a longer one the segments of _ChunkedFoldProgram.
     Spans: engine.load (to the first replay); per epoch engine.wait (the
     stop check), engine.epoch (the batch order drawn and uploaded, up to
-    the launch) and the replay's; engine.best.
+    the launch) and the replay's, programs.train_replay, around one
+    programs.graph_launch per segment launched; engine.best.
     """
     dev = x.device
     T = x.shape[0]
@@ -445,13 +527,16 @@ def train_fold(model: nn.Module, x, y_onehot, train_mask, val_mask, lr,
             vidx = _val_index(val_mask, settings)
             val_rows = None if vidx is None else vidx.shape[0]
             key = fold_key(model, x, y_onehot, n_real, val_rows, settings)
-            prog = _program(key, lambda capture: _FoldProgram(
+            kind = (_FoldProgram if n_real <= EPOCH_CHUNK
+                    else _ChunkedFoldProgram)
+            prog = _program(key, lambda capture: kind(
                 model, x, y_onehot, val_rows, n_real, settings, capture),
                 _uncaptured)
             hist = torch.full((settings.epochs,), float("nan"), device=dev)
             held.enter_context(prog.lock)
             prog.load(x, y_onehot, train_mask, val_mask, vidx, lr,
                       model.state_dict())
+            prog.n_real = n_real       # a chunked program's, per lane
             prog.bind(gens)
         try:
             for e in range(settings.epochs):
@@ -522,6 +607,7 @@ class _LanesProgram(programs.Program):
         self.L, self.T, self.bs = L, T, bs
         self.pad = -(-T // bs) * bs - T
         self.n_steps, self.statics = n_steps, (n_steps, active)
+        self.steps = n_steps
         self.patience, self.early_exit = settings.patience, settings.early_exit
         loss_impl = _LOSSES[settings.loss]
         self.model = model = copy.deepcopy(model).to(dev)

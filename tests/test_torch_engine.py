@@ -6,6 +6,9 @@ per-epoch permutations are recomputed here from the JAX key exactly as
 s2s_ismr_tpu/train/engine.py draws them and fed to the port through
 `epoch_perms`. Best val loss agrees at rtol 1e-4 and best parameters at
 atol 1e-4 (Adam amplifies float32 sum-order differences over the steps).
+The fold comparisons run with the engine's epoch chunk as shipped (one
+program an epoch) and cut to 3 steps, so that the fold's epochs of more
+than 3 batches run as the chunked program's segments.
 """
 
 import jax
@@ -19,7 +22,7 @@ from s2s_ismr_tpu.models import UNet as JaxUNet
 from s2s_ismr_tpu.models import UNetConfig as JaxUNetConfig
 from s2s_ismr_tpu.ops import terciles
 from s2s_ismr_tpu.train import engine as jengine
-from s2s_ismr_tpu_torch import timeutils
+from s2s_ismr_tpu_torch import programs, timeutils
 from s2s_ismr_tpu_torch.data import synthetic
 from s2s_ismr_tpu_torch.grid import Domain
 from s2s_ismr_tpu_torch.models import UNet, UNetConfig
@@ -29,6 +32,7 @@ from s2s_ismr_tpu_torch.train import splits
 from s2s_ismr_tpu_torch.train.losses import categorical_crossentropy
 
 SMALL = dict(filters=1, n_blocks=2)
+CHUNKS = [tengine.EPOCH_CHUNK, 3]      # as shipped; cut below the epoch
 
 
 @pytest.fixture(scope="module")
@@ -133,11 +137,23 @@ def test_good_step_updates(setup):
     assert not torch.equal(before[1], lane.stats)
 
 
-def test_train_fold_matches_jax(setup):
+def chunked(chunk):
+    """Whether the port's last program ran the chunked epoch, which it must
+    where the chunk is cut below the fold's batches."""
+    prog = programs.last()
+    ran = isinstance(prog, tengine._ChunkedFoldProgram)
+    assert ran == (prog.n_real > chunk)
+    return ran
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_train_fold_matches_jax(setup, chunk, monkeypatch):
+    monkeypatch.setattr(tengine, "EPOCH_CHUNK", chunk)
     x, _, fm, _, _ = setup
     kw = dict(epochs=3, batch_size=16, patience=3,
               val_rows=int(fm.val[0].sum()) + 2)
     (jbest, jv, jh), (tbest, tv, th) = run_both(setup, kw)
+    assert chunked(chunk) == (chunk == 3)
     np.testing.assert_allclose(tv, jv, rtol=1e-4)
     np.testing.assert_allclose(th, jh, rtol=1e-4)
     want = from_flax(jax.device_get(jbest))
@@ -147,9 +163,12 @@ def test_train_fold_matches_jax(setup):
                                    err_msg=name)
 
 
-def test_early_exit_stops_at_same_epoch(setup):
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_early_exit_stops_at_same_epoch(setup, chunk, monkeypatch):
+    monkeypatch.setattr(tengine, "EPOCH_CHUNK", chunk)
     kw = dict(epochs=8, batch_size=16, patience=1, early_exit=True)
     (_, jv, jh), (_, tv, th) = run_both(setup, kw, lr=3e-2, seed=1)
+    assert chunked(chunk) == (chunk == 3)
     n_j, n_t = int(np.isfinite(jh).sum()), int(np.isfinite(th).sum())
     assert n_j == n_t < kw["epochs"]
     np.testing.assert_allclose(th[:n_t], jh[:n_j], rtol=1e-4)

@@ -2,8 +2,8 @@
 `calls`) on the CPU: the spans of a tuning sweep call and their counts,
 self times and nesting, results bit-equal without records, the spans as
 torch.profiler ranges (also in `profiling.trace`'s Chrome JSON and around `StageTimer`
-stages), a mesh's thread spans, and the benchmark's three readers of them
-(`benchmark/metrics/`)."""
+stages), a mesh's thread spans, and the benchmark's readers of them and
+of the set-up call's captured steps (`benchmark/metrics/`)."""
 
 import collections
 import contextlib
@@ -27,7 +27,7 @@ GRID = tsweep.TuningGrid(n_blocks=(2,), n_filters=(1,), ct_kernels=((2, 2),),
                          patience=1)
 SPANS = ("sweep.call", "sweep.execute", "sweep.lane_models",
          "sweep.overrides", "engine.load", "programs.build", "engine.wait",
-         "engine.epoch", "programs.train_replay",
+         "engine.epoch", "programs.train_replay", "programs.graph_launch",
          "engine.best", "sweep.collect", "sweep.winners",
          "programs.predict_replay")
 # parent -> its child spans in one thread
@@ -35,9 +35,10 @@ CHILDREN = {"sweep.call": ("sweep.execute", "sweep.collect"),
             "sweep.execute": ("sweep.lane_models", "sweep.overrides",
                               "engine.load", "engine.wait", "engine.epoch",
                               "programs.train_replay", "engine.best"),
-            "sweep.collect": ("sweep.winners", "programs.predict_replay")}
+            "sweep.collect": ("sweep.winners", "programs.predict_replay"),
+            "programs.train_replay": ("programs.graph_launch",)}
 READERS = ("sweep.lane_prep_share", "engine.host_ms_per_lane_step",
-           "programs.train_replay_ms")
+           "programs.train_replay_ms", "programs.graph_launch_ms")
 
 
 @pytest.fixture(scope="module")
@@ -76,6 +77,13 @@ def last_calls(n):
     return profiling.calls()[-n:]
 
 
+def counters(res, captured):
+    """A call's counters: its lane steps, and the steps of the training
+    programs it built (`captured`, STATS' captured_steps added), if any."""
+    return {"lane_steps": res.train_steps,
+            **({"captured_steps": captured} if captured else {})}
+
+
 def waits(epochs_run):
     """engine.wait's count for lanes (or batched runs) of these epochs: a
     stop check before every epoch but the first, the one that ends a loop
@@ -85,7 +93,7 @@ def waits(epochs_run):
 
 @pytest.mark.parametrize("dispatch", ["serial", "vmap"])
 def test_sweep_call_spans_and_counts(data, dispatch):
-    misses = programs.STATS["misses"]
+    misses, steps = (programs.STATS[k] for k in ("misses", "captured_steps"))
     res = sweep(data, lane_dispatch=dispatch)
     built = programs.STATS["misses"] - misses
     (rec,) = last_calls(1)
@@ -103,13 +111,16 @@ def test_sweep_call_spans_and_counts(data, dispatch):
         per_load = 1
         assert n["engine.wait"] == waits([epochs])
     assert n["engine.epoch"] == n["programs.train_replay"] == epochs
+    # every epoch here is at most engine.EPOCH_CHUNK steps: one launch
+    assert n["programs.graph_launch"] == epochs
     assert n["engine.load"] == n["engine.best"] == per_load
     assert n["sweep.overrides"] == lanes
     assert n["sweep.lane_models"] == 1                 # one bucket
     assert n["sweep.winners"] == n["programs.predict_replay"] == F
     assert n.get("programs.build", 0) == built
     assert n["sweep.call"] == n["sweep.execute"] == n["sweep.collect"] == 1
-    assert rec["counters"] == {"lane_steps": res.train_steps}
+    assert rec["counters"] == counters(
+        res, programs.STATS["captured_steps"] - steps)
     assert res.timings["execute_s"] == sp["sweep.execute"]["total_s"]
     assert res.timings["collect_s"] == sp["sweep.collect"]["total_s"]
     assert res.timings["spans"] == {k: v["total_s"] for k, v in sp.items()}
@@ -203,6 +214,7 @@ def test_trace_json_holds_stages_and_spans(data, tmp_path):
 def test_mesh_thread_spans_land_in_the_callers_record(data):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
+    steps = programs.STATS["captured_steps"]
     try:
         res = sweep(data, mesh=pmesh.sweep_mesh(devices=["cpu"] * 2))
     finally:
@@ -214,14 +226,15 @@ def test_mesh_thread_spans_land_in_the_callers_record(data):
         int(res.epochs_table.sum())
     assert n["engine.load"] == n["sweep.lane_models"] == lanes
     assert n["sweep.call"] == 1
-    assert rec["counters"] == {"lane_steps": res.train_steps}
+    assert rec["counters"] == counters(
+        res, programs.STATS["captured_steps"] - steps)
     assert profiling.current() is None
 
 
-def readers():
+def readers(names=READERS):
     from benchmark import run as bench_run
     got = bench_run.metric_readers(os.path.join(REPO, "benchmark"))
-    return [got[name] for name in READERS]
+    return [got[name] for name in names]
 
 
 def cell(name):
@@ -263,3 +276,31 @@ def test_readers_refuse_other_calls(window, monkeypatch):
     monkeypatch.delattr(profiling, "calls")       # a program without spans
     assert [m.read(window) for m in mods] == [None] * len(mods)
 
+
+def test_launch_reader_reads_within_the_replay(window):
+    replay, launch = (m.read(window) for m in readers(
+        ("programs.train_replay_ms", "programs.graph_launch_ms")))
+    assert 0 < launch <= replay
+
+
+def test_captured_steps_reader_reads_the_setup_call(data, monkeypatch):
+    """The set-up call (id 0) builds every program of a fresh memo: the
+    reader gives the steps they captured, which STATS counts too; nothing
+    without that call's record or without records at all."""
+    monkeypatch.setattr(profiling, "_call_ids", itertools.count())
+    monkeypatch.setattr(profiling, "_calls", collections.deque(maxlen=8))
+    monkeypatch.setattr(programs, "_program_memo", programs._ProgramMemo())
+    steps = programs.STATS["captured_steps"]
+    sweep(data, lane_dispatch="serial")
+    sweep(data, lane_dispatch="serial")
+    (mod,) = readers(("programs.captured_steps",))
+    built = programs.STATS["captured_steps"] - steps
+    assert built > 0 and mod.read({}) == built
+    kept = profiling.calls()
+    assert [c["counters"].get("captured_steps") for c in kept] == [built,
+                                                                   None]
+    monkeypatch.setattr(profiling, "calls",
+                        lambda: [c for c in kept if c["id"] != 0])
+    assert mod.read({}) is None
+    monkeypatch.delattr(profiling, "calls")       # a program without spans
+    assert mod.read({}) is None
